@@ -1,0 +1,55 @@
+"""Public entry points for the duplex-stream kernels.
+
+Mirror of ``repro/kernels/ops.py``. Each dispatches on the device of the
+tensors it is given: a CPU tensor goes to the plain version in
+``kernels/ref.py``; any other tensor goes to the CUDA kernel in
+``kernels/duplex_stream.py``, which launches or raises. There is no
+fallback from the kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import duplex_stream as _ds
+from repro_torch.kernels import ref
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def duplex_kv_stream(in_q, in_scale, out_x, *, fused: bool = True,
+                     stage_blocks: int = 1):
+    """Fused duplex page-in/page-out transform.
+
+    ``fused=False`` runs the phase-separated baseline: the two
+    single-direction kernels back to back (identical math). ``N`` must be
+    a multiple of ``stage_blocks``, the pool's staging depth (callers pad
+    the streams with zero pages)."""
+    N = in_q.shape[0]
+    if N % stage_blocks:
+        raise ValueError(
+            f"duplex stream length {N} is not a multiple of the staging "
+            f"depth {stage_blocks}; pad the streams")
+    if _on_cpu(in_q):
+        return ref.duplex_kv_stream(in_q, in_scale, out_x)
+    if fused:
+        return _ds.duplex_kv_stream(in_q, in_scale, out_x)
+    in_deq = _ds.dequant_stream(in_q, in_scale)
+    out_q, out_scale = _ds.quant_stream(out_x)
+    return in_deq, out_q, out_scale
+
+
+def dequant_kv_stream(in_q, in_scale):
+    """Single-direction page-in transform (no page-out stream to fuse)."""
+    if _on_cpu(in_q):
+        return ref.dequantize_int8(in_q, in_scale)
+    return _ds.dequant_stream(in_q, in_scale)
+
+
+def quant_kv_stream(out_x):
+    """Single-direction page-out transform (no page-in stream to fuse)."""
+    if _on_cpu(out_x):
+        return ref.quantize_int8(out_x)
+    return _ds.quant_stream(out_x)

@@ -1,0 +1,37 @@
+"""Plain PyTorch versions of the duplex-stream kernels.
+
+Mirror of ``repro/kernels/ref.py:27-48``. The CPU path of
+``kernels.ops`` runs these, the CPU tests hold them against the JAX
+package, and ``chip_smoke.py`` holds the CUDA kernels against them on the
+card. Nothing on the serving path calls them for a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def quantize_int8(x: torch.Tensor):
+    """Per-row symmetric int8 quantization. x: (..., T, D) -> (q, scale)
+    with scale = max(amax, 1e-8) / 127, a true divide, round half to
+    even (``torch.round``), clipped to +-127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    # divide by a tensor, not a Python scalar: PyTorch's CUDA path turns
+    # ``t / 127.0`` into ``t * (1 / 127.0)``, which is not the IEEE divide.
+    scale = torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0)
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
+
+
+def duplex_kv_stream(in_q, in_scale, out_x):
+    """The fused duplex page-in/page-out transform: dequantize
+    ``(in_q, in_scale)`` to bf16 and quantize ``out_x`` to (int8, scale)."""
+    in_deq = dequantize_int8(in_q, in_scale)
+    out_q, out_scale = quantize_int8(out_x)
+    return in_deq, out_q, out_scale

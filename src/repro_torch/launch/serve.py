@@ -1,0 +1,186 @@
+"""Serving driver: continuous batching with duplex-paged KV (port of
+``repro/launch/serve.py``, flat pool, no tenants).
+
+Requests arrive staggered into the ``ServeEngine`` megastep loop; the
+admission policy picks which arrived prefills join the running set, and
+every step's block traffic pages through the ``DuplexOffloadEngine`` in
+one transaction, with the CUDA duplex-stream kernels moving the data. The
+run report (JSON, last line) carries throughput plus the paging stats,
+per-hint-scope billing and the modelled duplex-vs-serial speedup, in the
+reference's schema.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --batch 4 --requests 8 --prompt-len 8 --gen 16 --arrival-every 2
+
+Runs on the GPU; ``--device cpu`` is the only way onto the CPU. Weights
+and prompts are random, from fixed seeds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs as configs_lib
+from repro_torch.models import registry as R
+from repro_torch.serve import EngineConfig, EngineStallError, ServeEngine
+
+
+def main() -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", choices=configs_lib.ARCH_IDS,
+                   default="smollm-135m")
+    p.add_argument("--full", action="store_true",
+                   help="the published widths (default: the smoke config)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    p.add_argument("--batch", type=int, default=4,
+                   help="running decode slots (continuous batch width)")
+    p.add_argument("--requests", type=int, default=8)
+    p.add_argument("--prompt-len", type=int, default=8)
+    p.add_argument("--gen", type=int, default=16)
+    p.add_argument("--cache-len", type=int, default=128)
+    p.add_argument("--block-tokens", type=int, default=4,
+                   help="KV page granularity")
+    p.add_argument("--hbm-blocks", type=int, default=6,
+                   help="KV pool HBM slots shared by the whole batch")
+    p.add_argument("--pool-blocks", type=int, default=0)
+    p.add_argument("--prefill-chunk", type=int, default=4)
+    p.add_argument("--megastep", type=int, default=8,
+                   help="engine steps fused per host dispatch (K): the "
+                        "run loop adapts K between admission events and "
+                        "syncs the host once per megastep. 1 = classic "
+                        "per-step loop")
+    p.add_argument("--pipeline-depth", type=int, default=2,
+                   help="megastep boundaries in flight: 2 (default) "
+                        "plans and dispatches megastep t+1 before "
+                        "consuming t's deferred readback; 1 = classic "
+                        "blocking boundary. Bit-exact either way")
+    p.add_argument("--policy", default="hinted",
+                   help="admission policy (core.policies registry)")
+    p.add_argument("--arrival-every", type=int, default=2,
+                   help="steps between request arrivals (0 = all at once)")
+    p.add_argument("--stall-boundaries", type=int, default=64,
+                   help="consecutive zero-progress megastep boundaries "
+                        "before run() raises EngineStallError")
+    p.add_argument("--telemetry", action="store_true",
+                   help="include the CAX scope tree in the JSON report")
+    p.add_argument("--no-paging", action="store_true",
+                   help="disable the duplex KV pool (dense cache only)")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the warmup pass (the reported tok/s then "
+                        "includes the kernels' build and first launches)")
+    args = p.parse_args()
+
+    api = R.build(args.arch, smoke=not args.full, device=args.device)
+    params = api.init(torch.Generator().manual_seed(0))
+    cfg = EngineConfig(
+        max_batch=args.batch, cache_len=args.cache_len,
+        block_tokens=args.block_tokens, hbm_blocks=args.hbm_blocks,
+        pool_blocks=args.pool_blocks, prefill_chunk=args.prefill_chunk,
+        max_queue=max(args.requests, args.batch) + 8, policy=args.policy,
+        paging=not args.no_paging, megastep=args.megastep,
+        pipeline_depth=args.pipeline_depth,
+        stall_boundaries=args.stall_boundaries, device=args.device)
+    prompts = np.random.default_rng(1).integers(
+        0, api.cfg.vocab, (args.requests, args.prompt_len)).astype(np.int32)
+
+    def build_and_submit():
+        engine = ServeEngine(api, params, cfg)
+        rids = [engine.submit(prompts[i], args.gen,
+                              arrival_step=i * args.arrival_every).rid
+                for i in range(args.requests)]
+        return engine, rids
+
+    def crash_report(engine, exc) -> dict:
+        err = {"error": {"type": type(exc).__name__, "message": str(exc)},
+               "arch": args.arch, "requests": args.requests,
+               "steps": int(engine.step_count)}
+        if isinstance(exc, EngineStallError):
+            err["error"]["stuck_rids"] = exc.rids
+        return err
+
+    if not args.no_warmup:
+        # the same workload once first: builds the CUDA kernels and warms
+        # the libraries, so the measured run is steady-state serving.
+        warm, _ = build_and_submit()
+        try:
+            warm.run()
+        except (RuntimeError, ValueError) as e:
+            print(json.dumps(crash_report(warm, e)))
+            return 1
+    engine, rids = build_and_submit()
+
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.monotonic()
+    try:
+        outs = engine.run()
+    except (RuntimeError, ValueError) as e:
+        print(json.dumps(crash_report(engine, e)))
+        return 1
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    total_tokens = sum(len(outs[r]) for r in rids if r in outs)
+
+    est = engine.stats()
+    print(f"served {args.requests} requests / {total_tokens} tokens in "
+          f"{engine.step_count} steps / {est['host_dispatches']} host "
+          f"dispatches / {est['host_blocked']} blocked boundaries "
+          f"(megastep={args.megastep}, "
+          f"pipeline={args.pipeline_depth}), {dt:.2f}s "
+          f"({total_tokens / dt:.1f} tok/s) on {engine.device}")
+    done_rids = [r for r in rids if r in engine.completed]
+    if done_rids:
+        first = engine.completed[done_rids[0]]
+        print(f"first request: admitted step {first.admitted_step}, "
+              f"done step {first.done_step}, tokens "
+              f"{outs[done_rids[0]][:8].tolist()}...")
+
+    def _round(v):
+        if isinstance(v, float):
+            return round(v, 3)
+        if isinstance(v, dict):
+            return {k: _round(x) for k, x in v.items()}
+        return v
+
+    device_name = (torch.cuda.get_device_name(engine.device)
+                   if engine.device.type == "cuda" else "cpu")
+    report = {
+        "arch": args.arch,
+        "device": device_name,
+        "policy": args.policy,
+        "requests": args.requests,
+        "tenants": [],
+        "tiers": None,
+        "slots": args.batch,
+        "generated_tokens": int(total_tokens),
+        "steps": int(engine.step_count),
+        "megastep": args.megastep,
+        "pipeline_depth": args.pipeline_depth,
+        "mesh": None,
+        "host_dispatches": int(est["host_dispatches"]),
+        "host_blocked": int(est["host_blocked"]),
+        "wall_s": round(dt, 3),
+        "tok_s": round(total_tokens / dt, 2),
+        "faults_plan": None,
+        "faults": _round(est["faults"]),
+        "failed_requests": {},
+        "snapshot": _round(est["snapshot"]),
+        "restore": None,
+        "paging": _round(engine.paging_stats()),
+        "trace": None,
+    }
+    if args.telemetry:
+        report["telemetry"] = _round(engine.telemetry.to_dict())
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

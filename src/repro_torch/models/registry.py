@@ -1,0 +1,63 @@
+"""Model registry — uniform decode API over the port's architectures.
+
+Mirror of ``repro/models/registry.py`` for the dense family
+(``_lm_api``): ``build(arch_id, smoke=, device=)`` returns a ``ModelAPI``
+whose members close over the arch config and the device. Only the
+serving surface is ported (``init``, ``init_cache``, ``decode_step``);
+the training ``loss_fn``/``forward`` and the other families come later.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch import configs as configs_lib
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.transformer import LMConfig
+
+FAMILY = {"smollm-135m": "dense"}
+
+
+class ModelAPI(NamedTuple):
+    arch_id: str
+    family: str
+    cfg: Any
+    device: torch.device
+    init: Callable                # (torch.Generator) -> params on device
+    init_cache: Callable          # (batch, cache_len) -> cache on device
+    decode_step: Callable         # (params, cache, tokens, pos) -> (logits, cache)
+    param_count: int
+    active_param_count: int
+    # "ring": every cache leaf is token-indexed (a K/V ring overwrites a
+    # stale entry before it is read).
+    cache_kind: str = "ring"
+
+
+def _lm_api(arch_id: str, cfg: LMConfig,
+            device: torch.device | str = "cuda") -> ModelAPI:
+    dev = resolve_device(device)
+    return ModelAPI(
+        arch_id=arch_id, family=FAMILY.get(arch_id, "dense"), cfg=cfg,
+        device=dev,
+        init=functools.partial(transformer.init, cfg=cfg, device=dev),
+        init_cache=lambda batch, cache_len: transformer.init_cache(
+            cfg, batch, cache_len, dev),
+        decode_step=lambda params, cache, tokens, pos: transformer.
+        decode_step(params, cfg, cache, tokens, pos),
+        param_count=cfg.param_count(),
+        active_param_count=cfg.param_count(),
+    )
+
+
+def build(arch_id: str, smoke: bool = False,
+          device: torch.device | str = "cuda") -> ModelAPI:
+    """The arch's ``ModelAPI`` on ``device`` (``cuda`` unless the caller
+    passes ``"cpu"``; raises on a machine with no GPU)."""
+    cfg = configs_lib.get_config(arch_id, smoke=smoke)
+    if isinstance(cfg, LMConfig):
+        return _lm_api(arch_id, cfg, device)
+    raise TypeError(f"unknown config type {type(cfg)} for {arch_id}")

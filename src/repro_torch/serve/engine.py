@@ -1,0 +1,960 @@
+"""ServeEngine — continuous-batching decode over the duplex-paged KV pool.
+
+Port of ``repro/serve/engine.py`` for the flat pool without tenants,
+faults, snapshots or tracing. The structure is the reference's:
+
+  1. **admission** at megastep boundaries — free batch slots are offered
+     to the ``RequestQueue``, whose policy picks which arrived prefills
+     join the running batch;
+  2. **megastep** — up to K engine steps run as one host dispatch. Each
+     engine step is up to ``prefill_chunk`` micro-steps that advance every
+     active slot (prompt token while prefilling, last sampled token while
+     decoding) with the argmax fed straight back on the device. Per-slot
+     state lives in int32 device tensors (``_dev``); ``Request`` objects
+     are host mirrors refreshed from ONE packed (B, 3+K) readback per
+     megastep;
+  3. **KV paging** — after each inner step the blocks it filled are staged
+     on the device, written through to the ``PagedKVPool``, and the
+     batch's block demand is made resident in one pool transaction (one
+     plan, one stream-kernel launch).
+
+Everything about an engine step except the token values is deterministic
+host arithmetic (``_simulate_row``), so the host plans all K steps'
+paging without waiting for the device and uses the readback only for the
+token values (a mismatch in the counters raises). The same determinism
+gives the host the number of micro-steps in each inner step that advance
+any row: the reference skips a micro-step with no movers with a
+``lax.cond``; the port runs exactly the micro-steps that have movers and
+never asks the device.
+
+Where the reference jits and donates, the port runs eagerly and updates
+in place: the dense cache is written by ``decode_step`` in place, slot
+recycling rewrites cache rows in place, and the pool commits into its
+tier tensors in place.
+
+``pipeline_depth = 2`` splits each megastep into plan / dispatch /
+reconcile and keeps one dispatched megastep's readback deferred while the
+next boundary is planned and dispatched. On a CUDA device the packed
+readback is copied with ``non_blocking=True`` into pinned host memory
+behind a recorded CUDA event, and ``_reconcile`` waits on that event —
+the host never blocks at a boundary with work still to enqueue.
+``stats()['host_blocked']`` counts the boundaries where the host consumed
+a readback with nothing dispatched ahead of it (== megasteps at depth 1;
+1 per run — the final drain — at depth 2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.core import policies as policies_lib
+from repro_torch.core.hints import HintTree, default_serving_hints
+from repro_torch.core.telemetry import CaxRegistry
+from repro_torch.device import resolve_device, to_device
+from repro_torch.models.registry import ModelAPI
+from repro_torch.serve.kv_pool import PagedKVPool
+from repro_torch.serve.queue import (DECODE, DONE, PREFILL, STATE_OF_CODE,
+                                     Request, RequestQueue, S_DECODE, S_DONE,
+                                     S_EMPTY, S_PREFILL)
+
+
+def fresh_fault_stats() -> dict:
+    """The ``stats()["faults"]`` schema of the reference, zeroed: the fault
+    layer is not ported yet."""
+    return {"injected": 0, "retried": 0, "recovered": 0,
+            "quarantined": 0, "shed": 0, "evacuated": 0, "failed": 0,
+            "retry_us": 0.0, "offline_channels": []}
+
+
+def fresh_snapshot_stats() -> dict:
+    """The ``stats()["snapshot"]`` schema of the reference, zeroed: the
+    snapshot layer is not ported yet."""
+    return {"snapshots_taken": 0, "journal_entries": 0,
+            "restore_replayed": 0, "resubmitted": 0, "casualties": 0}
+
+
+class EngineStallError(RuntimeError):
+    """``run()`` made no progress for ``cfg.stall_boundaries`` consecutive
+    megastep boundaries while requests are still pending. ``rids`` names
+    the stuck requests."""
+
+    def __init__(self, message: str, rids):
+        super().__init__(message)
+        self.rids = list(rids)
+
+
+@dataclasses.dataclass(frozen=True)
+class _RowStep:
+    """One live row's predicted post-state for one inner step of a
+    megastep (host-deterministic; see ``ServeEngine._simulate_row``)."""
+    state: int          # S_* code after the step
+    consumed: int       # prompt tokens consumed after the step
+    n_gen: int          # tokens generated after the step
+    written: int        # tokens resident in the dense cache after it
+    emitted: bool       # did this step emit a sample?
+    transition: bool    # was it the PREFILL->DECODE transition step?
+
+
+class _Readback:
+    """The megastep's packed (B, 3+K) int32 readback, in flight. On a CUDA
+    device it is copied into pinned host memory with ``non_blocking=True``
+    behind a recorded event, so enqueueing it never waits for the device;
+    ``wait`` blocks on the event."""
+
+    def __init__(self, packed: torch.Tensor):
+        if packed.is_cuda:
+            self._host = torch.empty(packed.shape, dtype=packed.dtype,
+                                     pin_memory=True)
+            self._host.copy_(packed, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = packed, None
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched-but-unreconciled megastep — the pipeline's unit of
+    speculation. ``_plan`` fills the deterministic fields, ``_dispatch``
+    attaches the in-flight readback plus a journal of the speculative pool
+    mutations, ``_reconcile`` consumes it."""
+    now: int            # first engine step covered by the megastep
+    k: int              # inner steps fused into the dispatch
+    admitted: int       # requests admitted at the boundary
+    live: list          # rows live at dispatch time
+    traj: dict          # rid -> k predicted _RowSteps
+    micro: tuple        # per inner step: leading micro-steps with movers
+    packed: _Readback | None = None
+    report: dict = dataclasses.field(default_factory=dict)
+    journal: list = dataclasses.field(default_factory=list)
+                        # ("alloc" | "free", request, [block ids])
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    max_batch: int = 4          # running decode slots
+    cache_len: int = 128        # dense cache depth per slot
+    block_tokens: int = 16      # KV page granularity (tokens)
+    hbm_blocks: int = 8         # pool HBM slots, shared by the whole batch
+    pool_blocks: int = 0        # logical pool capacity (0 = auto)
+    prefill_chunk: int = 4      # prompt tokens consumed per engine step
+    max_queue: int = 32
+    policy: str = "hinted"      # admission policy (core.policies registry)
+    paging: bool = True         # False: pure continuous batching, no pool
+    megastep: int = 1           # engine steps fused per host dispatch (K);
+                                # run() adapts K <= megastep between
+                                # admission events. 1 = classic step loop.
+    pipeline_depth: int = 1     # megastep boundaries in flight: 1 = plan,
+                                # dispatch, block on the readback; 2 = plan
+                                # and dispatch t+1 before reconciling t.
+    stall_boundaries: int = 64  # run(): consecutive zero-progress
+                                # boundaries before EngineStallError
+    device: str = "cuda"        # where the cache, slot state and pool live
+
+    def resolved_pool_blocks(self) -> int:
+        if self.pool_blocks:
+            return self.pool_blocks
+        per_seq = math.ceil(self.cache_len / self.block_tokens)
+        return max(2 * self.hbm_blocks, per_seq * self.max_batch)
+
+
+def _kv_cache_leaves(cache):
+    """The transformer-family stacked cache dict, or None if the arch's
+    cache has no token-indexed K/V (paging is gated off for those)."""
+    if (isinstance(cache, dict) and {"k", "v", "pos"} <= set(cache)
+            and cache["k"].dim() == 5):
+        return cache
+    return None
+
+
+def _extract_blocks_math(k, v, slot_idx, t0, *, block_tokens: int):
+    """Gather KV blocks from the dense cache, batched over (slot, t0).
+
+    k/v: (L, B, W, KV, hd). slot_idx/t0: (n,) int — a fixed-width vector
+    padded with dummy entries. Returns (n, block_tokens, kv_dims) bf16
+    slabs with kv_dims = L * 2 * KV * hd (per token: layer-major, then
+    K/V, then heads) — the block-table-indexed read the pool pages."""
+    W = k.shape[2]
+    idx = ((t0[:, None] + torch.arange(block_tokens, device=k.device)
+            [None, :]) % W).long()                       # (n, bt)
+    sl = slot_idx.long()[:, None]
+    kv = torch.stack([k[:, sl, idx], v[:, sl, idx]], dim=3)
+    # (L, n, bt, 2, KV, hd) -> (n, bt, L, 2, KV, hd)
+    kv = kv.permute(1, 2, 0, 3, 4, 5)
+    return kv.reshape(kv.shape[0], block_tokens, -1).to(torch.bfloat16)
+
+
+def _written_of(dev):
+    """Tokens whose KV is in the dense cache, per slot: all consumed prompt
+    tokens plus every generated token that has been fed back."""
+    return torch.where(dev["state"] == S_PREFILL, dev["consumed"],
+                       torch.clamp(dev["consumed"] + dev["n_gen"] - 1,
+                                   min=0))
+
+
+def _admit_rows(dev, mask, prompts, prompt_len, max_new):
+    """Install admitted requests into their slots' device state rows
+    (fixed-width: ``mask``/``prompts`` span the full batch)."""
+    def sc(cur, new):
+        return torch.where(mask, new, cur)
+
+    return {
+        "state": sc(dev["state"], S_PREFILL),
+        "tok": sc(dev["tok"], prompts[:, 0]),
+        "consumed": sc(dev["consumed"], 0),
+        "n_gen": sc(dev["n_gen"], 0),
+        "prompt_len": sc(dev["prompt_len"], prompt_len),
+        "max_new": sc(dev["max_new"], max_new),
+        "prompt": torch.where(mask[:, None], prompts, dev["prompt"]),
+    }
+
+
+def _megastep_math(api: ModelAPI, n_micro: int, n_steps: int,
+                   block_tokens: int | None):
+    """The megastep: ``n_steps`` consecutive engine steps as one function
+    ``mega(params, cache, dev, micro) -> (dev, packed[, staged])``.
+
+    ``cache`` is updated in place. ``micro[t]`` is the number of leading
+    micro-steps of inner step t that advance any row (from the host's
+    trajectories); the remaining micro-steps of the step have no movers
+    and change nothing, so they are not run. ``packed`` is the (B, 3+K)
+    int32 readback (state | consumed | n_gen | tok_0 .. tok_{K-1}): a row
+    emits at most one token per engine step and after an emitting
+    micro-step the feed token *is* the sample, so these are the complete
+    host-mirror delta. With ``block_tokens`` set, ``staged[t]`` holds the
+    blocks inner step t filled — fixed-width cursor arithmetic over the
+    pre-step write positions, ``max_fills`` candidate blocks per slot —
+    as (B*max_fills, block_tokens, kv_dims) bf16 (padding rows are
+    dropped by the pool's sentinel ids)."""
+    if api.cache_kind != "ring":
+        raise ValueError(f"{api.arch_id}: only ring caches are ported")
+    n_micro = max(1, n_micro)
+    extract = block_tokens is not None
+    max_fills = -(-n_micro // block_tokens) if extract else 0
+
+    def engine_step(params, cache, dev, active: int):
+        B = dev["state"].shape[0]
+        P = dev["prompt"].shape[1]
+        brange = torch.arange(B, device=dev["state"].device)
+        for m in range(min(active, n_micro)):
+            prefilling = dev["state"] == S_PREFILL
+            decoding = dev["state"] == S_DECODE
+            # micro-step 0 advances every live row; later micro-steps only
+            # the still-prefilling rows (chunked prefill without stalling
+            # running decodes).
+            movers = prefilling | (decoding & (m == 0))
+            written = torch.where(
+                prefilling, dev["consumed"],
+                torch.clamp(dev["consumed"] + dev["n_gen"] - 1, min=0))
+            toks = torch.where(movers, dev["tok"], 0)
+            # non-movers see a dummy token; for a ring cache its K/V lands
+            # at the row's next write position and is overwritten by the
+            # row's next real token before any real query attends it.
+            logits, _ = api.decode_step(params, cache, toks, written)
+            picked = torch.argmax(logits, dim=-1).to(torch.int32)
+
+            pref_mover = movers & prefilling
+            consumed = dev["consumed"] + pref_mover.to(torch.int32)
+            fin_pref = pref_mover & (consumed == dev["prompt_len"])
+            emit = (movers & decoding) | fin_pref
+            n_gen = dev["n_gen"] + emit.to(torch.int32)
+            state = torch.where(fin_pref, S_DECODE, dev["state"])
+            state = torch.where(emit & (n_gen >= dev["max_new"]),
+                                S_DONE, state)
+            nxt = dev["prompt"][brange,
+                                torch.clamp(consumed, max=P - 1).long()]
+            tok = torch.where(
+                movers, torch.where(state == S_PREFILL, nxt, picked),
+                dev["tok"])
+            dev = dict(dev, state=state, tok=tok, consumed=consumed,
+                       n_gen=n_gen)
+        return dev
+
+    def mega(params, cache, dev, micro):
+        toks, staged = [], []
+        for t in range(n_steps):
+            fill_base = _written_of(dev) // (block_tokens or 1)
+            dev = engine_step(params, cache, dev, micro[t])
+            toks.append(dev["tok"])
+            if extract:
+                B = dev["state"].shape[0]
+                ar = torch.arange(max_fills, dtype=torch.int32,
+                                  device=fill_base.device)
+                slot_idx = torch.arange(
+                    B, device=fill_base.device).repeat_interleave(max_fills)
+                t0 = (fill_base.repeat_interleave(max_fills)
+                      + ar.repeat(B)) * block_tokens
+                staged.append(_extract_blocks_math(
+                    cache["k"], cache["v"], slot_idx, t0,
+                    block_tokens=block_tokens))
+        packed = torch.cat(
+            [dev["state"][:, None], dev["consumed"][:, None],
+             dev["n_gen"][:, None], torch.stack(toks, dim=1)], dim=1)
+        if extract:
+            return dev, packed, staged
+        return dev, packed
+
+    return mega
+
+
+class ServeEngine:
+    """Continuous-batching serving engine for one ``ModelAPI``."""
+
+    def __init__(self, api: ModelAPI, params, cfg: EngineConfig,
+                 hints: HintTree | None = None):
+        if cfg.megastep < 1:
+            raise ValueError("megastep must be >= 1")
+        if cfg.pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
+        self.device = resolve_device(cfg.device)
+        if api.device != self.device:
+            raise ValueError(f"model is on {api.device} but the engine is "
+                             f"configured for {self.device}")
+        self.api = api
+        self.params = params
+        self.cfg = cfg
+        self.hints = hints or default_serving_hints()
+        self.cache = api.init_cache(cfg.max_batch, cfg.cache_len)
+        # pristine rows for slot recycling
+        self._cache0 = api.init_cache(cfg.max_batch, cfg.cache_len)
+        self.slots: list[Request | None] = [None] * cfg.max_batch
+        B = cfg.max_batch
+
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+        self._dev = {
+            "state": torch.full((B,), S_EMPTY, dtype=torch.int32,
+                                device=self.device),
+            "tok": z(B), "consumed": z(B), "n_gen": z(B),
+            "prompt_len": z(B), "max_new": z(B),
+            "prompt": z(B, cfg.cache_len),
+        }
+        kv = _kv_cache_leaves(self.cache)
+        self.paged = cfg.paging and kv is not None
+        if self.paged:
+            L, _, _, KV, hd = kv["k"].shape
+            kv_dims = L * 2 * KV * hd
+            self.pool = PagedKVPool(
+                cfg.resolved_pool_blocks(), cfg.hbm_blocks,
+                (cfg.block_tokens, kv_dims), hints=self.hints,
+                device=self.device)
+            kv_bytes = float(kv_dims * 2)
+        else:
+            self.pool = None
+            kv_bytes = 4096.0
+        self.queue = RequestQueue(cfg.max_queue, policy=cfg.policy,
+                                  hints=self.hints,
+                                  kv_bytes_per_token=kv_bytes)
+        self._mega_fns: dict[int, object] = {}
+        self.step_count = 0
+        self.host_dispatches = 0   # megastep-program dispatches
+        self.megasteps = 0         # megastep boundaries
+        self.host_blocked = 0      # boundaries whose readback the host
+                                   # consumed with nothing dispatched
+                                   # ahead of it (the pipeline bubbles)
+        self._inflight: list[_InFlight] = []   # dispatched, unreconciled
+        self._fb_zero = np.zeros((self.queue.capacity,), np.float32)
+        self.completed: dict[int, Request] = {}
+        self._scan_cursor: dict[int, int] = {}   # rid -> cold-block cursor
+        # CAX scope attribution, always wired (host-side dict arithmetic
+        # off the billing the pool already does).
+        self.telemetry = CaxRegistry()
+        if self.paged:
+            self.pool.attach_telemetry(self.telemetry)
+
+    # -- intake ------------------------------------------------------------
+    def submit(self, prompt, max_new_tokens: int, arrival_step: int = 0,
+               hint_path: str = "/serve/llm/prefill") -> Request:
+        req = Request(prompt=np.asarray(prompt, np.int32),
+                      max_new_tokens=max_new_tokens,
+                      arrival_step=arrival_step, hint_path=hint_path)
+        if req.prompt_len < 1:
+            raise ValueError("prompt must contain at least one token")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        total = req.prompt_len + max_new_tokens
+        if total > self.cfg.cache_len:
+            raise ValueError(
+                f"request needs {total} cache positions but cache_len is "
+                f"{self.cfg.cache_len}")
+        if self.paged:
+            # one engine step can newly fill at most ceil(chunk/bt) blocks
+            # of one request, all of which must fit the pool's HBM.
+            bt = self.cfg.block_tokens
+            chunk = max(1, self.cfg.prefill_chunk)
+            worst = min(math.ceil(total / bt), math.ceil(chunk / bt))
+            if worst > self.cfg.hbm_blocks:
+                raise ValueError(
+                    f"request can fill {worst} KV blocks in one engine "
+                    f"step but the pool holds {self.cfg.hbm_blocks} HBM "
+                    f"blocks; grow hbm_blocks or shrink prefill_chunk/"
+                    f"block_tokens")
+        self.queue.submit(req)
+        return req
+
+    def active(self) -> list[Request]:
+        return [r for r in self.slots if r is not None]
+
+    def pending(self) -> int:
+        return len(self.queue) + len(self.active())
+
+    # -- the step loop -----------------------------------------------------
+    def _mega_fn(self, n_steps: int):
+        """The (prefill_chunk, K, block_tokens) megastep this engine uses
+        for a K-step dispatch."""
+        if n_steps not in self._mega_fns:
+            bt = self.cfg.block_tokens if self.paged else None
+            self._mega_fns[n_steps] = _megastep_math(
+                self.api, self.cfg.prefill_chunk, n_steps, bt)
+        return self._mega_fns[n_steps]
+
+    def step(self) -> dict:
+        """One engine step — the K=1 megastep."""
+        return self.megastep(1)
+
+    def megastep(self, n_steps: int | None = None) -> dict:
+        """Run up to K consecutive engine steps as one host dispatch: plan,
+        dispatch, reconcile, blocking on this boundary's readback before
+        returning. Older in-flight megasteps are reconciled first."""
+        rec = self._dispatch(self._plan(n_steps))
+        while self._inflight[0] is not rec:
+            self._reconcile(self._inflight[0])
+        return self._reconcile(rec)
+
+    def _plan(self, n_steps: int | None = None) -> _InFlight:
+        """Boundary planning: admission plus every live row's K-step
+        trajectory, from the planning view of the request mirrors. No
+        device sync."""
+        k = int(n_steps) if n_steps else max(1, self.cfg.megastep)
+        now = self.step_count
+        admitted = self._admit(now)
+        live = self.active()
+        traj = {r.rid: self._simulate_row(r, k) for r in live}
+        return _InFlight(now=now, k=k, admitted=admitted, live=live,
+                         traj=traj, micro=self._active_micro(live, traj, k))
+
+    def _active_micro(self, live: list[Request], traj: dict,
+                      k: int) -> tuple:
+        """Per inner step, how many leading micro-steps advance any row:
+        1 for a decoding row (micro-step 0 only), the remaining prompt
+        (capped at ``prefill_chunk``) for a prefilling one. Movers only
+        shrink across a step's micro-steps, so the rest have none."""
+        n_micro = max(1, self.cfg.prefill_chunk)
+        out = []
+        for t in range(k):
+            m = 0
+            for r in live:
+                if t == 0:
+                    state, consumed = r.plan_state, r.plan_consumed
+                    state = {PREFILL: S_PREFILL, DECODE: S_DECODE,
+                             DONE: S_DONE}[state]
+                else:
+                    prev = traj[r.rid][t - 1]
+                    state, consumed = prev.state, prev.consumed
+                if state == S_DECODE:
+                    m = max(m, 1)
+                elif state == S_PREFILL:
+                    m = max(m, min(n_micro, r.prompt_len - consumed))
+            out.append(m)
+        return tuple(out)
+
+    def _dispatch(self, rec: _InFlight) -> _InFlight:
+        """Enqueue one planned megastep without consuming its readback:
+        the K-step program, the per-inner-step paging transactions against
+        its staged slabs, mid-megastep block frees and the policy fold.
+        Host state advances along the deterministic trajectory and every
+        pool alloc/free is journaled on ``rec``."""
+        now, k, live, traj = rec.now, rec.k, rec.live, rec.traj
+        staged = None
+        if live:
+            out = self._mega_fn(k)(self.params, self.cache, self._dev,
+                                   rec.micro)
+            if self.paged:
+                self._dev, packed, staged = out
+            else:
+                self._dev, packed = out
+            rec.packed = _Readback(packed)
+            self.host_dispatches += 1
+
+        report = {"page_ins": 0, "page_outs": 0, "migrations": 0}
+        feedbacks = []
+        for t in range(k):
+            rows = [(r, traj[r.rid][t]) for r in live
+                    if traj[r.rid][t].state != S_DONE]
+            if self.paged:
+                rep = self._page_kv_at(now + t, rows, staged, t,
+                                       rec.journal)
+                report["page_ins"] += rep["page_ins"]
+                report["page_outs"] += rep["page_outs"]
+                # rows completing at this inner step release their pool
+                # blocks now, exactly when the per-step loop would have.
+                for r in live:
+                    st = traj[r.rid][t]
+                    if (st.state == S_DONE and r.blocks
+                            and not r.blocks_freed
+                            and (t == 0
+                                 or traj[r.rid][t - 1].state != S_DONE)):
+                        self.pool.free(r.blocks)
+                        r.blocks_freed = True
+                        rec.journal.append(("free", r, list(r.blocks)))
+            if k > 1:
+                feedbacks.append(policies_lib.Feedback(
+                    moved_read=self._fb_zero, moved_write=self._fb_zero,
+                    utilization=np.float32(
+                        len(rows) / max(1, self.cfg.max_batch))))
+
+        # the megastep's outcome — bar token values — is already decided,
+        # so the planning view advances now (trajectory-driven retirement).
+        for r in live:
+            last = traj[r.rid][-1]
+            r.speculate(STATE_OF_CODE[last.state], last.consumed,
+                        last.n_gen)
+        report["completed"] = self._retire_planned(rec)
+        rec.report = report
+
+        if feedbacks and len(self.queue):
+            # megastep-boundary policy feedback, padded to the configured
+            # megastep width (a zero-service step is an update no-op).
+            util = float(np.mean([float(fb.utilization)
+                                  for fb in feedbacks]))
+            zero = policies_lib.Feedback(
+                moved_read=self._fb_zero, moved_write=self._fb_zero,
+                utilization=np.float32(0.0))
+            pad = max(0, max(1, self.cfg.megastep) - len(feedbacks))
+            self.queue.note_service(
+                policies_lib.stack_feedbacks(feedbacks + [zero] * pad),
+                mean_util=util)
+        self.step_count += k
+        self.megasteps += 1
+        self._inflight.append(rec)
+        return rec
+
+    def _retire_planned(self, rec: _InFlight) -> int:
+        """Trajectory-driven retirement at dispatch time: rows whose
+        predicted final state is DONE leave their slots before the
+        readback lands, with the deterministic ``done_step``."""
+        n = 0
+        for r in rec.live:
+            steps_r = rec.traj[r.rid]
+            if steps_r[-1].state != S_DONE:
+                continue
+            r.done_step = rec.now + next(
+                t for t, st in enumerate(steps_r) if st.state == S_DONE)
+            if self.paged and r.blocks and not r.blocks_freed:
+                self.pool.free(r.blocks)
+                r.blocks_freed = True
+                rec.journal.append(("free", r, list(r.blocks)))
+            self._scan_cursor.pop(r.rid, None)
+            self.slots[r.slot] = None
+            self.completed[r.rid] = r
+            n += 1
+        return n
+
+    def _reconcile(self, rec: _InFlight) -> dict:
+        """Consume one in-flight megastep's deferred readback: append the
+        sampled tokens to the real host mirrors and cross-check the
+        device's final counters against the dispatched trajectory. A
+        readback that contradicts its trajectory rolls back every
+        speculative pool mutation before raising."""
+        self._inflight.remove(rec)
+        if rec.live and not self._inflight:
+            # the host blocks on this readback with nothing dispatched
+            # ahead of it — a pipeline bubble.
+            self.host_blocked += 1
+        advanced = 0
+        if rec.live:
+            rb = rec.packed.wait()
+            try:
+                for r in rec.live:
+                    steps_r = rec.traj[r.rid]
+                    toks = [int(rb[r.slot, 3 + t])
+                            for t, st in enumerate(steps_r) if st.emitted]
+                    c0, g0 = r.consumed, len(r.generated)
+                    dev_state = int(rb[r.slot, 0])
+                    dev_consumed = int(rb[r.slot, 1])
+                    dev_ngen = int(rb[r.slot, 2])
+                    last = steps_r[-1]
+                    exp_ngen = g0 + sum(st.emitted for st in steps_r)
+                    fields = []
+                    if STATE_OF_CODE.get(dev_state) != \
+                            STATE_OF_CODE[last.state]:
+                        fields.append(
+                            f"state (host planned "
+                            f"{STATE_OF_CODE[last.state]}, device "
+                            f"reported {STATE_OF_CODE.get(dev_state, f'code {dev_state}')})")
+                    if dev_consumed != last.consumed:
+                        fields.append(
+                            f"consumed (host planned {last.consumed}, "
+                            f"device reported {dev_consumed})")
+                    if dev_ngen != exp_ngen:
+                        fields.append(
+                            f"n_gen (host planned {exp_ngen}, device "
+                            f"reported {dev_ngen})")
+                    if fields:
+                        raise RuntimeError(
+                            f"rid {r.rid}: boundary at step {rec.now} "
+                            f"(k={rec.k}): device readback diverged "
+                            f"from the host trajectory on "
+                            + "; ".join(fields))
+                    r.sync_megastep(dev_state, dev_consumed, dev_ngen, toks)
+                    advanced += ((last.consumed + last.n_gen) - (c0 + g0)
+                                 - sum(st.transition for st in steps_r))
+            except RuntimeError:
+                self._rollback_speculation(rec)
+                raise
+        return {"step": rec.now, "steps": rec.k,
+                "admitted": rec.admitted, "advanced": advanced,
+                **rec.report}
+
+    def _rollback_speculation(self, failed: _InFlight) -> None:
+        """Divergence escape hatch: replay the journals of every
+        unreconciled megastep backwards — speculative allocs are freed
+        (and dropped from their request's tail), speculative frees are
+        reclaimed — so block ownership is consistent on exit."""
+        recs = [failed] + self._inflight
+        self._inflight = []
+        for rec in reversed(recs):
+            for op, req, ids in reversed(rec.journal):
+                if op == "alloc":
+                    del req.blocks[len(req.blocks) - len(ids):]
+                    self.pool.free(ids)
+                else:
+                    self.pool.reclaim(ids)
+                    req.blocks_freed = False
+            rec.journal = []
+
+    def run(self, max_steps: int | None = None) -> dict[int, np.ndarray]:
+        """Drive megasteps until every submitted request completes.
+
+        Between admission events the engine free-runs: ``_auto_megastep``
+        picks the widest K <= ``cfg.megastep`` that cannot skip a step
+        where admission could change the live set, so admission happens at
+        exactly the steps the K=1 loop would have used. With
+        ``cfg.pipeline_depth > 1`` the loop plans and dispatches megastep
+        t+1 before reconciling t's deferred readback. Results are
+        bit-exact across depths and widths."""
+        limit = max_steps if max_steps is not None else 10_000
+        depth = max(1, self.cfg.pipeline_depth)
+        stall_cap = max(1, self.cfg.stall_boundaries)
+        done_steps = 0
+        stall = 0
+        while done_steps < limit:
+            if not self.pending():
+                break
+            k = self._auto_megastep(limit - done_steps)
+            rec = self._plan(k)
+            self._dispatch(rec)
+            done_steps += k
+            stall = 0 if (rec.admitted > 0 or rec.live) else stall + 1
+            if stall >= stall_cap:
+                while self._inflight:
+                    self._reconcile(self._inflight[0])
+                stuck = sorted([r.rid for r in self.queue.waiting()]
+                               + [r.rid for r in self.active()])
+                raise EngineStallError(
+                    f"no progress for {stall_cap} consecutive megastep "
+                    f"boundaries (step {self.step_count}): rids {stuck} "
+                    f"are stuck (never admitted, never advancing)",
+                    stuck)
+            while len(self._inflight) >= depth:
+                self._reconcile(self._inflight[0])
+        while self._inflight:
+            self._reconcile(self._inflight[0])
+        if self.pending():
+            stuck = sorted([r.rid for r in self.queue.waiting()]
+                           + [r.rid for r in self.active()])
+            raise RuntimeError(
+                f"requests still pending after {limit} steps: "
+                f"rids {stuck}")
+        return {rid: np.asarray(r.generated, np.int32)
+                for rid, r in sorted(self.completed.items())}
+
+    # -- megastep planning (host-deterministic trajectories) ----------------
+    def _simulate_row(self, r: Request, k: int) -> "list[_RowStep]":
+        """Predict one live row's next ``k`` engine steps — the exact twin
+        of the device state machine: a PREFILL row consumes up to
+        ``prefill_chunk`` prompt tokens per step and emits once on its
+        transition; a DECODE row emits one token per step; DONE rows
+        freeze. Reads the planning view (``plan_*``)."""
+        n_micro = max(1, self.cfg.prefill_chunk)
+        state = {PREFILL: S_PREFILL, DECODE: S_DECODE,
+                 DONE: S_DONE}[r.plan_state]
+        consumed, n_gen = r.plan_consumed, r.plan_n_gen
+        plen, mnew = r.prompt_len, r.max_new_tokens
+        out = []
+        for _ in range(k):
+            emitted = transition = False
+            if state == S_DECODE:
+                n_gen += 1
+                emitted = True
+                if n_gen >= mnew:
+                    state = S_DONE
+            elif state == S_PREFILL:
+                consumed = min(plen, consumed + n_micro)
+                if consumed >= plen:
+                    n_gen += 1
+                    emitted = transition = True
+                    state = S_DONE if n_gen >= mnew else S_DECODE
+            written = (consumed if state == S_PREFILL
+                       else max(consumed + n_gen - 1, 0))
+            out.append(_RowStep(state=state, consumed=consumed,
+                                n_gen=n_gen, written=written,
+                                emitted=emitted, transition=transition))
+        return out
+
+    def _steps_until_done(self, r: Request) -> int:
+        """Engine steps until this live row completes (planning view)."""
+        if r.plan_state == DONE:
+            return 0
+        n = 0
+        if r.plan_state == PREFILL:
+            n = self._steps_until_decode(r)
+            gen_left = r.max_new_tokens - r.plan_n_gen - 1
+        else:
+            gen_left = r.max_new_tokens - r.plan_n_gen
+        return max(1, n + gen_left)
+
+    def _steps_until_decode(self, r: Request) -> int:
+        """Steps until a prefilling row's PREFILL->DECODE transition."""
+        if r.plan_state != PREFILL:
+            return 0
+        n_micro = max(1, self.cfg.prefill_chunk)
+        return max(1, -(-(r.prompt_len - r.plan_consumed) // n_micro))
+
+    def _auto_megastep(self, remaining: int) -> int:
+        """Widest safe megastep from the current boundary: never skip a
+        step where admission could change the live set (an arrival, or —
+        while admissible work waits — the earliest completion or
+        prefill->decode transition). Quantized down to a power of two."""
+        cap = min(max(1, self.cfg.megastep), max(1, remaining))
+        if cap == 1:
+            return 1
+        now = self.step_count
+        live = self.active()
+        waiting = self.queue.waiting()
+        events = [r.arrival_step - now for r in waiting
+                  if r.arrival_step > now]
+        if any(r.arrival_step <= now for r in waiting):
+            evs = []
+            for r in live:
+                evs.append(self._steps_until_done(r))
+                if r.plan_state == PREFILL:
+                    evs.append(self._steps_until_decode(r))
+            events.append(min(evs) if evs else 1)
+        if events:
+            k = min(cap, max(1, min(events)))
+        else:
+            # nothing can be admitted before the live set drains: free-run
+            # to the end of the longest remaining work (or the cap).
+            rem = [self._steps_until_done(r) for r in live]
+            k = min(cap, max(rem)) if rem else 1
+        return 1 << (k.bit_length() - 1)
+
+    # -- admission ---------------------------------------------------------
+    def _worst_step_blocks(self, prompt_len: int, max_new: int,
+                           prefilling: bool) -> int:
+        """Worst-case KV blocks one request can newly fill in one step."""
+        if not prefilling:
+            return 1
+        bt = self.cfg.block_tokens
+        chunk = max(1, self.cfg.prefill_chunk)
+        return min(math.ceil((prompt_len + max_new) / bt),
+                   math.ceil(chunk / bt))
+
+    def _admission_budget(self, now: int, n_free: int) -> int:
+        """Cap admissions on write-through headroom: the batch's
+        worst-case newly filled blocks per step must fit the pool's HBM."""
+        if not self.paged:
+            return n_free
+        running = sum(
+            self._worst_step_blocks(r.prompt_len, r.max_new_tokens,
+                                    r.plan_state == PREFILL)
+            for r in self.active())
+        headroom = self.pool.hbm_capacity - running
+        arrived = self.queue.waiting(now)
+        if not arrived or headroom < 1:
+            return 0 if arrived else n_free
+        per_adm = max(self._worst_step_blocks(r.prompt_len,
+                                              r.max_new_tokens, True)
+                      for r in arrived)
+        return min(n_free, headroom // per_adm)
+
+    def _admit(self, now: int) -> int:
+        free = [i for i, r in enumerate(self.slots) if r is None]
+        budget = self._admission_budget(now, len(free)) if free else 0
+        if budget <= 0:
+            return 0
+        admitted = self.queue.dispatch(now, budget)
+        if not admitted:
+            return 0
+        B = self.cfg.max_batch
+        P = self.cfg.cache_len
+        mask = np.zeros((B,), bool)
+        prompts = np.zeros((B, P), np.int32)
+        plen = np.zeros((B,), np.int32)
+        mnew = np.zeros((B,), np.int32)
+        for req in admitted:
+            slot = free.pop(0)
+            req.slot = slot
+            self.slots[slot] = req
+            self._scan_cursor[req.rid] = 0
+            mask[slot] = True
+            prompts[slot, :req.prompt_len] = req.prompt
+            plen[slot] = req.prompt_len
+            mnew[slot] = req.max_new_tokens
+        # recycled slots get pristine cache rows, in place
+        rows = to_device(np.flatnonzero(mask).astype(np.int64), self.device)
+        for key, leaf in self.cache.items():
+            leaf[:, rows] = self._cache0[key][:, rows]
+        dev = self.device
+        self._dev = _admit_rows(self._dev, to_device(mask, dev),
+                                to_device(prompts, dev),
+                                to_device(plen, dev), to_device(mnew, dev))
+        return len(admitted)
+
+    # -- batched KV paging (one transaction per inner step) -----------------
+    def _page_kv_at(self, now: int, rows: "list[tuple[Request, _RowStep]]",
+                    staged, t: int, journal: list) -> dict:
+        """One paging transaction for inner step ``t`` of a megastep: LLM
+        KV traffic planned from the trajectory, written through from the
+        megastep's staged slab, through one ``PagedKVPool.step_multi``.
+        Dispatch-only; every alloc is journaled."""
+        bt = self.cfg.block_tokens
+        new_pairs: list[tuple[Request, int, int]] = []  # (req, bi, stage_j)
+        for r, st in rows:
+            # entering inner step t, len(r.blocks) is the block count
+            # before the step — the device staged this step's fills at
+            # stage rows j = bi - fill_base.
+            fill_base = len(r.blocks)
+            n_filled = st.written // bt
+            while len(r.blocks) < n_filled:
+                bi = len(r.blocks)
+                r.blocks.extend(self.pool.alloc(1))
+                journal.append(("alloc", r, [r.blocks[bi]]))
+                new_pairs.append((r, bi, bi - fill_base))
+
+        new_ids = [r.blocks[bi] for r, bi, _ in new_pairs]
+        budget = self.pool.hbm_capacity
+        if len(new_ids) > budget:
+            raise RuntimeError(
+                f"{len(new_ids)} blocks filled in one step but pool HBM "
+                f"holds {self.pool.hbm_capacity}; shrink prefill_chunk or "
+                f"grow hbm_blocks")
+        # new blocks first — they must be resident for the write-through;
+        # demand beyond capacity is advisory and may be trimmed.
+        holders = [r for r, _ in rows]
+        demand = self._block_demand(holders)
+        needed = list(dict.fromkeys(new_ids + [b for _, b, _ in demand]))
+        needed = needed[:budget]
+        self._advance_cursors(holders, demand, set(needed))
+        if not needed:
+            return {"page_ins": 0, "page_outs": 0}
+        report = self.pool.step_multi([("/serve/kv_cache", needed)])
+        if new_pairs:
+            # fixed-width write-through from the staged slab: row
+            # slot*max_fills + j holds the block extracted right after this
+            # inner step; padding rows carry an out-of-range sentinel id.
+            max_fills = -(-max(1, self.cfg.prefill_chunk) // bt)
+            ids = np.full((self.cfg.max_batch * max_fills,),
+                          self.pool.n_blocks, np.int32)
+            for r, bi, j in new_pairs:
+                ids[r.slot * max_fills + j] = r.blocks[bi]
+            self.pool.write_staged(ids, staged, t)
+        return report
+
+    def _block_demand(self, live: list[Request]
+                      ) -> list[tuple[int, int, bool]]:
+        """The step's resident set as (rid, block, is_cold) triples:
+        per-slot fair share of the pool's HBM, newest blocks pinned,
+        remaining share cycling through the cold tail."""
+        holders = [r for r in live if r.blocks]
+        if not holders:
+            return []
+        budget = max(1, self.pool.hbm_capacity // len(holders))
+        demand: list[tuple[int, int, bool]] = []
+        for r in holders:
+            demand.append((r.rid, r.blocks[-1], False))
+            older = r.blocks[:-1]
+            k = min(budget - 1, len(older))
+            if k > 0:
+                c = self._scan_cursor.get(r.rid, 0) % len(older)
+                ring = older[c:] + older[:c]
+                demand.extend((r.rid, b, True) for b in ring[:k])
+        return demand
+
+    def _advance_cursors(self, holders: list[Request],
+                         demand: list[tuple[int, int, bool]],
+                         kept: set[int]) -> None:
+        """Move each request's cold-scan cursor past the cold picks that
+        survived the capacity trim."""
+        stepped: dict[int, int] = {}
+        for rid, block, cold in demand:
+            if cold and block in kept:
+                stepped[rid] = stepped.get(rid, 0) + 1
+        for r in holders:
+            k = stepped.get(r.rid)
+            if k and len(r.blocks) > 1:
+                n = len(r.blocks) - 1
+                c = self._scan_cursor.get(r.rid, 0) % n
+                self._scan_cursor[r.rid] = (c + k) % n
+
+    # -- reporting -----------------------------------------------------------
+    def stats(self) -> dict:
+        """Dispatch accounting in the reference's schema (the fault and
+        snapshot layers, not ported yet, report zeros)."""
+        return {"steps": self.step_count,
+                "host_dispatches": self.host_dispatches,
+                "megasteps": self.megasteps,
+                "host_blocked": self.host_blocked,
+                "faults": fresh_fault_stats(),
+                "snapshot": fresh_snapshot_stats()}
+
+    def paging_stats(self) -> dict:
+        if not self.paged:
+            return {"paged": False, **self.stats()}
+        # the engine's dispatch accounting wins the shared "steps" key;
+        # the pool's transaction count survives as "paging_steps".
+        stats = {"paged": True, **self.pool.stats,
+                 "paging_steps": self.pool.stats["steps"], **self.stats(),
+                 "duplex_speedup": self.pool.duplex_speedup()}
+        stats["tiers"] = self.pool.tier_stats()
+        stats["tier_speedup"] = self.pool.tier_speedup()
+        stats["by_path"] = {
+            path: {**st, "duplex_speedup": self.pool.duplex_speedup(path)}
+            for path, st in self.pool.stats["by_path"].items()}
+        return stats
+
+
+def reference_decode(api: ModelAPI, params, prompts, num_tokens: int,
+                     cache_len: int = 128) -> torch.Tensor:
+    """Static-batch greedy decode — the token-for-token oracle the engine
+    is tested against. prompts: (B, P) ints; returns (B, num_tokens) int32
+    on the model's device."""
+    prompts = torch.as_tensor(np.asarray(prompts, np.int32),
+                              device=api.device)
+    B, P = prompts.shape
+    cache = api.init_cache(B, cache_len)
+
+    def pos(t):
+        return torch.full((B,), t, dtype=torch.int32, device=api.device)
+
+    logits = None
+    for t in range(P):
+        logits, cache = api.decode_step(params, cache, prompts[:, t], pos(t))
+    outs = []
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    for i in range(num_tokens):
+        outs.append(tok)
+        logits, cache = api.decode_step(params, cache, tok, pos(P + i))
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.stack(outs, dim=1)

@@ -1,0 +1,90 @@
+"""On-card tests of the port (marker ``cuda``): the CUDA kernels against
+their plain versions, and the serving engine token-exact on the GPU.
+They skip where there is no CUDA device; on a machine with one, run
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+This file imports neither JAX nor the JAX package, so it also runs where
+only PyTorch is installed."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import duplex_stream as ds  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _streams(n, t, d, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    in_q, in_scale = ref.quantize_int8(torch.randn((n, t, d), generator=g))
+    out_x = torch.randn((n, t, d), generator=g).to(torch.bfloat16)
+    return [x.to(device) for x in (in_q, in_scale, out_x)]
+
+
+def _assert_close(got, want):
+    deq, q, scale = got
+    wdeq, wq, wscale = want
+    assert torch.equal(deq, wdeq)
+    torch.testing.assert_close(scale, wscale, rtol=1e-6, atol=0.0)
+    assert (q.int() - wq.int()).abs().max().item() <= 1
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 11520), (6, 16, 11520),
+                                   (3, 5, 1001), (1, 1, 7)])
+def test_kernels_match_plain_versions(cuda, shape):
+    streams = _streams(*shape, seed=sum(shape), device=cuda)
+    want = ref.duplex_kv_stream(*streams)
+    before = dict(ds.LAUNCHES)
+    _assert_close(ds.duplex_kv_stream(*streams), want)
+    _assert_close(ops.duplex_kv_stream(*streams, fused=False), want)
+    q, scale = ds.quant_stream(streams[2])
+    _assert_close((ds.dequant_stream(*streams[:2]), q, scale), want)
+    torch.cuda.synchronize()
+    assert {k: ds.LAUNCHES[k] - before[k] for k in before} == {
+        "duplex_kv_stream": 1, "quant_stream": 2, "dequant_stream": 2}
+
+
+def test_wrappers_reject_bad_inputs(cuda):
+    in_q, in_scale, out_x = _streams(2, 4, 32, seed=0, device=cuda)
+    with pytest.raises(TypeError):
+        ds.quant_stream(out_x.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        ds.quant_stream(out_x.transpose(0, 1))
+    with pytest.raises(ValueError, match="shape"):
+        ds.duplex_kv_stream(in_q, in_scale[:1], out_x)
+
+
+def test_engine_token_exact_on_the_card(cuda):
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, ServeEngine, reference_decode
+    api = registry.build("smollm-135m", smoke=True, device="cuda")
+    params = api.init(torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(1).integers(
+        0, api.cfg.vocab, (6, 7)).astype(np.int32)
+    cfg = EngineConfig(max_batch=3, cache_len=64, block_tokens=4,
+                       hbm_blocks=6, prefill_chunk=3, max_queue=8,
+                       megastep=4, pipeline_depth=2, device="cuda")
+    eng = ServeEngine(api, params, cfg)
+    rids = [eng.submit(prompts[i], 9, arrival_step=2 * i).rid
+            for i in range(6)]
+    ds.reset_launches()
+    outs = eng.run(max_steps=300)
+    assert ds.LAUNCHES["duplex_kv_stream"] > 0
+    for lo in range(0, 6, 3):
+        want = reference_decode(api, params, prompts[lo:lo + 3], 9,
+                                cache_len=64).cpu().numpy()
+        for j in range(3):
+            np.testing.assert_array_equal(outs[rids[lo + j]], want[j])
+    assert eng.stats()["host_blocked"] == 1
+    eng.pool.check_invariants()

@@ -1,0 +1,131 @@
+"""Port's ServeEngine: token-exact against the port's ``reference_decode``
+at K = 1/4/8 x pipeline depth 1/2, the ``host_blocked`` contract, and one
+run on the same arguments as the JAX engine (float32 weights) with equal
+tokens, admission and completion steps, ``paging_stats`` and
+``duplex_speedup``."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny shapes: PyTorch's intra-op threads would only spin beside the
+# other test workers
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models import registry as R  # noqa: E402
+from repro.serve import EngineConfig as JaxEngineConfig  # noqa: E402
+from repro.serve import ServeEngine as JaxServeEngine  # noqa: E402
+from repro_torch.models import registry as TR  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.serve import (EngineConfig, ServeEngine,  # noqa: E402
+                               reference_decode)
+
+ARCH = "smollm-135m"
+BASE = dict(max_batch=3, cache_len=64, block_tokens=4, hbm_blocks=6,
+            prefill_chunk=3, max_queue=8)
+
+
+@pytest.fixture(scope="module")
+def api():
+    return TR.build(ARCH, smoke=True, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def params(api):
+    return api.init(torch.Generator().manual_seed(0))
+
+
+def _reference(api, params, prompts, n, cache_len, batch):
+    """Static-batch oracle in batches of the engine's width, so both see
+    the same matmul shapes (bf16 rounding must not depend on batch)."""
+    return np.concatenate([
+        reference_decode(api, params, prompts[i:i + batch], n,
+                         cache_len=cache_len).numpy()
+        for i in range(0, len(prompts), batch)])
+
+
+@pytest.mark.parametrize("megastep", [1, 4, 8])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_token_exact_vs_reference(api, params, megastep, depth):
+    """Staggered arrivals, more requests than slots (recycled rows) and
+    an oversubscribed pool that pages both ways."""
+    prompts = np.random.default_rng(1).integers(
+        0, api.cfg.vocab, (5, 6)).astype(np.int32)
+    ref = _reference(api, params, prompts, 10, 64, BASE["max_batch"])
+    eng = ServeEngine(api, params, EngineConfig(
+        **BASE, megastep=megastep, pipeline_depth=depth, device="cpu"))
+    rids = [eng.submit(prompts[i], 10, arrival_step=2 * i).rid
+            for i in range(5)]
+    outs = eng.run(max_steps=300)
+    for i, rid in enumerate(rids):
+        np.testing.assert_array_equal(outs[rid], ref[i])
+    ps = eng.paging_stats()
+    assert ps["page_ins"] > 0 and ps["page_outs"] > 0
+    eng.pool.check_invariants()
+    # host_blocked: every boundary at depth 1, only the final drain at 2
+    st = eng.stats()
+    assert st["host_blocked"] == (st["megasteps"] if depth == 1 else 1)
+    if megastep > 1:
+        assert st["host_dispatches"] < st["steps"]
+
+
+def test_without_paging_still_exact(api, params):
+    prompts = np.random.default_rng(2).integers(
+        0, api.cfg.vocab, (4, 5)).astype(np.int32)
+    ref = _reference(api, params, prompts, 7, 64, 2)
+    eng = ServeEngine(api, params, EngineConfig(
+        **dict(BASE, max_batch=2), paging=False, megastep=4,
+        pipeline_depth=2, device="cpu"))
+    rids = [eng.submit(prompts[i], 7).rid for i in range(4)]
+    outs = eng.run(max_steps=200)
+    for i, rid in enumerate(rids):
+        np.testing.assert_array_equal(outs[rid], ref[i])
+    assert eng.paging_stats()["paged"] is False
+
+
+def test_same_run_as_the_jax_engine():
+    """Same weights (float32), prompts and config: same tokens, the same
+    admission and completion steps, the same paging stats (modelled
+    microseconds included, exactly) and duplex_speedup."""
+    japi0 = R.build(ARCH, smoke=True)
+    jp = japi0.init(jax.random.PRNGKey(0))
+    japi = R._lm_api(ARCH, dataclasses.replace(japi0.cfg,
+                                               dtype=jnp.float32))
+    jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    tcfg = dataclasses.replace(TR.build(ARCH, smoke=True,
+                                        device="cpu").cfg,
+                               dtype=torch.float32)
+    tapi = TR._lm_api(ARCH, tcfg, "cpu")
+    tp = TT.params_from_jax(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), jp), tcfg)
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, int(rng.integers(4, 9))).astype(
+        np.int32) for _ in range(6)]
+    kw = dict(BASE, megastep=4, pipeline_depth=2)
+    je = JaxServeEngine(japi, jp32, JaxEngineConfig(**kw))
+    te = ServeEngine(tapi, tp, EngineConfig(**kw, device="cpu"))
+    jr = [je.submit(p, 9, arrival_step=2 * i).rid
+          for i, p in enumerate(prompts)]
+    tr = [te.submit(p, 9, arrival_step=2 * i).rid
+          for i, p in enumerate(prompts)]
+    jo, to = je.run(max_steps=300), te.run(max_steps=300)
+    for a, b in zip(jr, tr):
+        np.testing.assert_array_equal(to[b], jo[a])
+        assert te.completed[b].admitted_step == je.completed[a].admitted_step
+        assert te.completed[b].done_step == je.completed[a].done_step
+    assert te.paging_stats() == je.paging_stats()
+    assert te.pool.duplex_speedup() == je.pool.duplex_speedup() > 1.0
+    assert te.stats() == je.stats()
+
+
+def test_engine_defaults_to_cuda(api, params):
+    if torch.cuda.is_available():
+        pytest.skip("this checks the no-GPU behaviour")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(api, params, EngineConfig())
