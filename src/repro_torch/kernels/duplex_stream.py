@@ -4,10 +4,10 @@ Port of ``repro/kernels/duplex_stream.py``: the fused page-in dequantize /
 page-out quantize pass (``duplex_kv_stream``) and its two
 single-direction halves (``quant_stream``, ``dequant_stream``). The
 kernels are CUDA C++ for ``sm_90a`` in ``csrc/duplex_stream.cu`` (the
-source says what bounds them and how). They are compiled with ``nvcc``
-at first use into ``build/kernels/`` at the repository root, into a
-shared library with a plain C interface, and loaded with ``ctypes``.
-Nothing is compiled or loaded when this module is imported.
+source says what bounds them and how), built at first use into a shared
+library with a plain C interface and loaded with ``ctypes`` by
+``kernels/_build.py``. Nothing is compiled or loaded when this module is
+imported.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity and raises on anything else, allocates its outputs with
@@ -20,18 +20,13 @@ the tensor's device.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "duplex_stream.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import check_tensor as _check
+
+SOURCE = _build.CSRC / "duplex_stream.cu"
 
 #: launches per wrapper, counted where the kernel is launched and nowhere
 #: else (``chip_smoke.py`` reads these to show the serving path ran the
@@ -46,43 +41,19 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
-                           "the CUDA toolkit at first use")
-    return nvcc
-
-
-def library_path() -> Path:
-    """Build output, keyed by the source and flags."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libduplex_stream_{key}.so"
+def library_path():
+    return _build.library_path(SOURCE)
 
 
 def build() -> str:
-    """Compile the kernels unless the library for this source exists.
-    Returns nvcc's log (register and shared-memory use per kernel), or ""
-    when nothing was built."""
-    out = library_path()
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                          str(SOURCE)], capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{res.stderr}")
-    os.replace(tmp, out)
-    return res.stderr + res.stdout
+    """Compile this module's kernels unless built; returns nvcc's log."""
+    return _build.build(SOURCE)
 
 
 def _load():
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
+        lib = _build.load(SOURCE)
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.duplex_kv_stream_launch.argtypes = [vp] * 6 + [ll, i32, vp]
         lib.quant_stream_launch.argtypes = [vp] * 3 + [ll, i32, vp]
@@ -94,21 +65,6 @@ def _load():
         lib.duplex_stream_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-           device: torch.device | None = None) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _blocks(t: torch.Tensor, name: str) -> tuple[int, int, int]:

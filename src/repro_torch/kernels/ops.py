@@ -1,10 +1,11 @@
-"""Public entry points for the duplex-stream kernels.
+"""Public entry points for the port's kernels.
 
 Mirror of ``repro/kernels/ops.py``. Each dispatches on the device of the
 tensors it is given: a CPU tensor goes to the plain version in
 ``kernels/ref.py``; any other tensor goes to the CUDA kernel in
-``kernels/duplex_stream.py``, which launches or raises. There is no
-fallback from the kernel to the plain version.
+``kernels/duplex_stream.py`` or ``kernels/vector_distance.py``, which
+launches or raises. There is no fallback from the kernel to the plain
+version.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.kernels import duplex_stream as _ds
 from repro_torch.kernels import ref
+from repro_torch.kernels import vector_distance as _vd
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -53,3 +55,11 @@ def quant_kv_stream(out_x):
     if _on_cpu(out_x):
         return ref.quantize_int8(out_x)
     return _ds.quant_stream(out_x)
+
+
+def l2_distance(queries, blocks):
+    """Batched query-to-block squared L2 distances (vector-search tenant):
+    queries (Q, D), blocks (N, T, D) bf16 -> (N, Q, T) f32."""
+    if _on_cpu(queries):
+        return ref.l2_distance(queries, blocks)
+    return _vd.l2_distance(queries, blocks)

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the duplex-stream kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Mirror of ``repro/kernels/ref.py:27-48``. The CPU path of
+Mirror of ``repro/kernels/ref.py:27-60``. The CPU path of
 ``kernels.ops`` runs these, the CPU tests hold them against the JAX
 package, and ``chip_smoke.py`` holds the CUDA kernels against them on the
 card. Nothing on the serving path calls them for a CUDA tensor.
@@ -35,3 +35,12 @@ def duplex_kv_stream(in_q, in_scale, out_x):
     in_deq = dequantize_int8(in_q, in_scale)
     out_q, out_scale = quantize_int8(out_x)
     return in_deq, out_q, out_scale
+
+
+def l2_distance(queries: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distances, the direct sum of squared differences in f32.
+    queries (Q, D), blocks (N, T, D) -> (N, Q, T) f32."""
+    q = queries.float()
+    b = blocks.float()
+    diff = q[None, :, None, :] - b[:, None, :, :]
+    return (diff * diff).sum(dim=-1)

@@ -1,16 +1,19 @@
-"""Serving driver: continuous batching with duplex-paged KV (port of
-``repro/launch/serve.py``, flat pool, no tenants).
+"""Serving driver: multi-tenant continuous batching with duplex-paged KV
+(port of ``repro/launch/serve.py``, flat pool).
 
 Requests arrive staggered into the ``ServeEngine`` megastep loop; the
-admission policy picks which arrived prefills join the running set, and
-every step's block traffic pages through the ``DuplexOffloadEngine`` in
-one transaction, with the CUDA duplex-stream kernels moving the data. The
+admission policy picks which waiting work joins the running set — LLM
+prefills into decode slots, and (with ``--tenants``) KV-store op streams
+and vector-search query walks into tenant slots — and every step's block
+traffic pages through the ``DuplexOffloadEngine`` in one grouped
+transaction, with the CUDA kernels moving and searching the data. The
 run report (JSON, last line) carries throughput plus the paging stats,
 per-hint-scope billing and the modelled duplex-vs-serial speedup, in the
 reference's schema.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
-      --batch 4 --requests 8 --prompt-len 8 --gen 16 --arrival-every 2
+      --batch 4 --requests 8 --prompt-len 8 --gen 16 --arrival-every 2 \
+      --tenants redis,vectordb
 
 Runs on the GPU; ``--device cpu`` is the only way onto the CPU. Weights
 and prompts are random, from fixed seeds.
@@ -27,7 +30,22 @@ import torch
 
 from repro_torch import configs as configs_lib
 from repro_torch.models import registry as R
-from repro_torch.serve import EngineConfig, EngineStallError, ServeEngine
+from repro_torch.serve import (EngineConfig, EngineStallError, KVStoreTenant,
+                               ServeEngine, VectorSearchTenant)
+
+KNOWN_TENANTS = ("redis", "vectordb")
+
+
+def _tenants_arg(value: str) -> list[str]:
+    """argparse type for --tenants: fail at parse time with the known
+    names instead of deep in engine setup."""
+    names = [t for t in value.split(",") if t]
+    unknown = [t for t in names if t not in KNOWN_TENANTS]
+    if unknown:
+        raise argparse.ArgumentTypeError(
+            f"unknown tenants {unknown}; known tenants: "
+            f"{','.join(KNOWN_TENANTS)}")
+    return names
 
 
 def main() -> int:
@@ -62,6 +80,13 @@ def main() -> int:
                         "blocking boundary. Bit-exact either way")
     p.add_argument("--policy", default="hinted",
                    help="admission policy (core.policies registry)")
+    p.add_argument("--tenants", type=_tenants_arg, default=[],
+                   help="comma-separated non-LLM tenants to co-serve: "
+                        f"{','.join(KNOWN_TENANTS)} (each adds "
+                        "hint-scoped op streams through the shared "
+                        "pool)")
+    p.add_argument("--tenant-steps", type=int, default=32,
+                   help="op-stream length for each tenant request")
     p.add_argument("--arrival-every", type=int, default=2,
                    help="steps between request arrivals (0 = all at once)")
     p.add_argument("--stall-boundaries", type=int, default=64,
@@ -75,12 +100,20 @@ def main() -> int:
                    help="skip the warmup pass (the reported tok/s then "
                         "includes the kernels' build and first launches)")
     args = p.parse_args()
+    tenant_names = args.tenants            # validated at argparse time
+    if tenant_names and args.no_paging:
+        p.error("tenants serve from the paged pool; drop --no-paging")
 
     api = R.build(args.arch, smoke=not args.full, device=args.device)
     params = api.init(torch.Generator().manual_seed(0))
+    # tenants reserve per-step HBM headroom; grow the pool's working set
+    # so LLM decode keeps its share (redis: 2 blocks/step, vectordb: 4).
+    reserve = {"redis": 2, "vectordb": 4}
+    tenant_reserve = sum(reserve.get(t, 0) for t in tenant_names)
     cfg = EngineConfig(
         max_batch=args.batch, cache_len=args.cache_len,
-        block_tokens=args.block_tokens, hbm_blocks=args.hbm_blocks,
+        block_tokens=args.block_tokens,
+        hbm_blocks=max(args.hbm_blocks, tenant_reserve + 4),
         pool_blocks=args.pool_blocks, prefill_chunk=args.prefill_chunk,
         max_queue=max(args.requests, args.batch) + 8, policy=args.policy,
         paging=not args.no_paging, megastep=args.megastep,
@@ -91,6 +124,16 @@ def main() -> int:
 
     def build_and_submit():
         engine = ServeEngine(api, params, cfg)
+        if "redis" in tenant_names:
+            kv = engine.add_tenant(KVStoreTenant(
+                n_slots=2, ops_per_step=1, store_blocks=16))
+            kv.preload(16)
+            kv.submit("sequential", n_steps=args.tenant_steps)
+            kv.submit("sequential", n_steps=args.tenant_steps)
+        if "vectordb" in tenant_names:
+            vec = engine.add_tenant(VectorSearchTenant(
+                n_slots=1, visits_per_step=2, data_blocks=12))
+            vec.submit(n_steps=args.tenant_steps)
         rids = [engine.submit(prompts[i], args.gen,
                               arrival_step=i * args.arrival_every).rid
                 for i in range(args.requests)]
@@ -156,7 +199,7 @@ def main() -> int:
         "device": device_name,
         "policy": args.policy,
         "requests": args.requests,
-        "tenants": [],
+        "tenants": tenant_names,
         "tiers": None,
         "slots": args.batch,
         "generated_tokens": int(total_tokens),

@@ -1,11 +1,13 @@
 """ServeEngine — continuous-batching decode over the duplex-paged KV pool.
 
-Port of ``repro/serve/engine.py`` for the flat pool without tenants,
-faults, snapshots or tracing. The structure is the reference's:
+Port of ``repro/serve/engine.py`` for the flat pool, with tenants
+(``add_tenant``: the KV-store and vector-search ``WorkloadAPI``s of
+``serve/workloads.py``), without faults, snapshots or tracing. The
+structure is the reference's:
 
-  1. **admission** at megastep boundaries — free batch slots are offered
-     to the ``RequestQueue``, whose policy picks which arrived prefills
-     join the running batch;
+  1. **admission** at megastep boundaries — free batch slots, and each
+     tenant's free slots, are offered to the ``RequestQueue``, whose
+     policy picks which arrived requests join the running set;
   2. **megastep** — up to K engine steps run as one host dispatch. Each
      engine step is up to ``prefill_chunk`` micro-steps that advance every
      active slot (prompt token while prefilling, last sampled token while
@@ -15,8 +17,12 @@ faults, snapshots or tracing. The structure is the reference's:
      megastep;
   3. **KV paging** — after each inner step the blocks it filled are staged
      on the device, written through to the ``PagedKVPool``, and the
-     batch's block demand is made resident in one pool transaction (one
-     plan, one stream-kernel launch).
+     batch's block demand, merged with every tenant's, is made resident in
+     one pool transaction (one plan and one stream-kernel launch per hint
+     scope); then each tenant runs its device compute on the resident
+     blocks. A megastep with tenant work and no live LLM row still runs
+     each inner step's transaction and tenant compute, with no program
+     dispatch and no readback.
 
 Everything about an engine step except the token values is deterministic
 host arithmetic (``_simulate_row``), so the host plans all K steps'
@@ -371,6 +377,36 @@ class ServeEngine:
         self.telemetry = CaxRegistry()
         if self.paged:
             self.pool.attach_telemetry(self.telemetry)
+        # non-LLM tenants (WorkloadAPI) sharing the pool, the paging
+        # transaction and the admission queue
+        self.tenants: dict[str, object] = {}
+        self._reserved_blocks = 0   # HBM headroom promised to tenants
+
+    # -- tenants -----------------------------------------------------------
+    def add_tenant(self, workload):
+        """Attach a ``WorkloadAPI`` tenant (KV store, vector search, ...).
+
+        The tenant's requests go through the shared ``RequestQueue`` and
+        its per-step block demand joins LLM KV paging in the same
+        ``PagedKVPool.step_multi`` transaction. ``blocks_per_step`` HBM
+        blocks are reserved so joint demand can never overflow the pool.
+        """
+        if not self.paged:
+            raise ValueError(
+                "tenants serve from the paged KV pool; this engine has "
+                "paging disabled (or a non-pageable cache family)")
+        if workload.name in self.tenants or workload.name == "llm":
+            raise ValueError(f"tenant name {workload.name!r} already taken")
+        reserved = self._reserved_blocks + workload.blocks_per_step
+        if reserved >= self.pool.hbm_capacity:
+            raise ValueError(
+                f"tenants would reserve {reserved} of "
+                f"{self.pool.hbm_capacity} HBM blocks; grow hbm_blocks or "
+                f"shrink the tenant's per-step footprint")
+        workload.bind(self)
+        self.tenants[workload.name] = workload
+        self._reserved_blocks = reserved
+        return workload
 
     # -- intake ------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, arrival_step: int = 0,
@@ -406,7 +442,8 @@ class ServeEngine:
         return [r for r in self.slots if r is not None]
 
     def pending(self) -> int:
-        return len(self.queue) + len(self.active())
+        return (len(self.queue) + len(self.active())
+                + sum(t.pending() for t in self.tenants.values()))
 
     # -- the step loop -----------------------------------------------------
     def _mega_fn(self, n_steps: int):
@@ -488,6 +525,7 @@ class ServeEngine:
 
         report = {"page_ins": 0, "page_outs": 0, "migrations": 0}
         feedbacks = []
+        tenant_done = 0
         for t in range(k):
             rows = [(r, traj[r.rid][t]) for r in live
                     if traj[r.rid][t].state != S_DONE]
@@ -507,6 +545,10 @@ class ServeEngine:
                         self.pool.free(r.blocks)
                         r.blocks_freed = True
                         rec.journal.append(("free", r, list(r.blocks)))
+            for tn in self.tenants.values():
+                for r in tn.retire(now + t):
+                    self.completed[r.rid] = r
+                    tenant_done += 1
             if k > 1:
                 feedbacks.append(policies_lib.Feedback(
                     moved_read=self._fb_zero, moved_write=self._fb_zero,
@@ -519,7 +561,7 @@ class ServeEngine:
             last = traj[r.rid][-1]
             r.speculate(STATE_OF_CODE[last.state], last.consumed,
                         last.n_gen)
-        report["completed"] = self._retire_planned(rec)
+        report["completed"] = tenant_done + self._retire_planned(rec)
         rec.report = report
 
         if feedbacks and len(self.queue):
@@ -655,12 +697,14 @@ class ServeEngine:
             rec = self._plan(k)
             self._dispatch(rec)
             done_steps += k
-            stall = 0 if (rec.admitted > 0 or rec.live) else stall + 1
+            progress = (rec.admitted > 0 or bool(rec.live)
+                        or any(tn.running()
+                               for tn in self.tenants.values()))
+            stall = 0 if progress else stall + 1
             if stall >= stall_cap:
                 while self._inflight:
                     self._reconcile(self._inflight[0])
-                stuck = sorted([r.rid for r in self.queue.waiting()]
-                               + [r.rid for r in self.active()])
+                stuck = self._stuck_rids()
                 raise EngineStallError(
                     f"no progress for {stall_cap} consecutive megastep "
                     f"boundaries (step {self.step_count}): rids {stuck} "
@@ -671,13 +715,18 @@ class ServeEngine:
         while self._inflight:
             self._reconcile(self._inflight[0])
         if self.pending():
-            stuck = sorted([r.rid for r in self.queue.waiting()]
-                           + [r.rid for r in self.active()])
+            stuck = self._stuck_rids()
             raise RuntimeError(
                 f"requests still pending after {limit} steps: "
                 f"rids {stuck}")
         return {rid: np.asarray(r.generated, np.int32)
                 for rid, r in sorted(self.completed.items())}
+
+    def _stuck_rids(self) -> list[int]:
+        return sorted([r.rid for r in self.queue.waiting()]
+                      + [r.rid for r in self.active()]
+                      + [r.rid for t in self.tenants.values()
+                         for r in t.running()])
 
     # -- megastep planning (host-deterministic trajectories) ----------------
     def _simulate_row(self, r: Request, k: int) -> "list[_RowStep]":
@@ -750,6 +799,10 @@ class ServeEngine:
                 evs.append(self._steps_until_done(r))
                 if r.plan_state == PREFILL:
                     evs.append(self._steps_until_decode(r))
+            for tn in self.tenants.values():
+                for tr in tn.running():
+                    ci = tn.completion_in(tr)
+                    evs.append(1 if ci is None else max(1, ci))
             events.append(min(evs) if evs else 1)
         if events:
             k = min(cap, max(1, min(events)))
@@ -757,6 +810,9 @@ class ServeEngine:
             # nothing can be admitted before the live set drains: free-run
             # to the end of the longest remaining work (or the cap).
             rem = [self._steps_until_done(r) for r in live]
+            for tn in self.tenants.values():
+                rem.extend(max(1, tn.completion_in(tr) or 1)
+                           for tr in tn.running())
             k = min(cap, max(rem)) if rem else 1
         return 1 << (k.bit_length() - 1)
 
@@ -773,15 +829,18 @@ class ServeEngine:
 
     def _admission_budget(self, now: int, n_free: int) -> int:
         """Cap admissions on write-through headroom: the batch's
-        worst-case newly filled blocks per step must fit the pool's HBM."""
+        worst-case newly filled blocks per step, plus the HBM blocks
+        reserved for attached tenants, must fit the pool's HBM."""
         if not self.paged:
             return n_free
         running = sum(
             self._worst_step_blocks(r.prompt_len, r.max_new_tokens,
                                     r.plan_state == PREFILL)
             for r in self.active())
-        headroom = self.pool.hbm_capacity - running
-        arrived = self.queue.waiting(now)
+        headroom = (self.pool.hbm_capacity - self._reserved_blocks
+                    - running)
+        arrived = [r for r in self.queue.waiting(now)
+                   if r.tenant == "llm"]
         if not arrived or headroom < 1:
             return 0 if arrived else n_free
         per_adm = max(self._worst_step_blocks(r.prompt_len,
@@ -791,19 +850,30 @@ class ServeEngine:
 
     def _admit(self, now: int) -> int:
         free = [i for i, r in enumerate(self.slots) if r is None]
-        budget = self._admission_budget(now, len(free)) if free else 0
-        if budget <= 0:
+        budget: int | dict[str, int] = self._admission_budget(
+            now, len(free)) if free else 0
+        if self.tenants:
+            budget = {"llm": max(0, budget)}
+            for t in self.tenants.values():
+                budget[t.name] = t.free_slots()
+        elif budget <= 0:
             return 0
         admitted = self.queue.dispatch(now, budget)
         if not admitted:
             return 0
+        llm = [r for r in admitted if r.tenant == "llm"]
+        for req in admitted:
+            if req.tenant != "llm":
+                self.tenants[req.tenant].start(req, now)
+        if not llm:
+            return len(admitted)
         B = self.cfg.max_batch
         P = self.cfg.cache_len
         mask = np.zeros((B,), bool)
         prompts = np.zeros((B, P), np.int32)
         plen = np.zeros((B,), np.int32)
         mnew = np.zeros((B,), np.int32)
-        for req in admitted:
+        for req in llm:
             slot = free.pop(0)
             req.slot = slot
             self.slots[slot] = req
@@ -827,8 +897,10 @@ class ServeEngine:
                     staged, t: int, journal: list) -> dict:
         """One paging transaction for inner step ``t`` of a megastep: LLM
         KV traffic planned from the trajectory, written through from the
-        megastep's staged slab, through one ``PagedKVPool.step_multi``.
-        Dispatch-only; every alloc is journaled."""
+        megastep's staged slab, plus every tenant's block demand grouped
+        by hint scope, through one ``PagedKVPool.step_multi``; then each
+        tenant's device compute on the resident blocks. Dispatch-only;
+        every alloc is journaled."""
         bt = self.cfg.block_tokens
         new_pairs: list[tuple[Request, int, int]] = []  # (req, bi, stage_j)
         for r, st in rows:
@@ -843,13 +915,24 @@ class ServeEngine:
                 journal.append(("alloc", r, [r.blocks[bi]]))
                 new_pairs.append((r, bi, bi - fill_base))
 
+        # tenant demand first: it is bounded by the per-tenant
+        # reservations, and the LLM cold-scan budget shrinks to whatever
+        # the tenants left unclaimed this step.
+        tenant_groups: list[tuple[str, list[int]]] = []
+        tenant_blocks = 0
+        for tn in self.tenants.values():
+            for path, ids in tn.block_demand(now):
+                if ids:
+                    tenant_groups.append((path, ids))
+                    tenant_blocks += len(set(ids))
+
         new_ids = [r.blocks[bi] for r, bi, _ in new_pairs]
-        budget = self.pool.hbm_capacity
+        budget = self.pool.hbm_capacity - tenant_blocks
         if len(new_ids) > budget:
             raise RuntimeError(
                 f"{len(new_ids)} blocks filled in one step but pool HBM "
-                f"holds {self.pool.hbm_capacity}; shrink prefill_chunk or "
-                f"grow hbm_blocks")
+                f"holds {self.pool.hbm_capacity} ({tenant_blocks} claimed "
+                f"by tenants); shrink prefill_chunk or grow hbm_blocks")
         # new blocks first — they must be resident for the write-through;
         # demand beyond capacity is advisory and may be trimmed.
         holders = [r for r, _ in rows]
@@ -857,9 +940,12 @@ class ServeEngine:
         needed = list(dict.fromkeys(new_ids + [b for _, b, _ in demand]))
         needed = needed[:budget]
         self._advance_cursors(holders, demand, set(needed))
-        if not needed:
+        groups = ([("/serve/kv_cache", needed)] if needed else []) \
+            + tenant_groups
+        if not groups and not self.tenants:
             return {"page_ins": 0, "page_outs": 0}
-        report = self.pool.step_multi([("/serve/kv_cache", needed)])
+        report = (self.pool.step_multi(groups) if groups
+                  else {"page_ins": 0, "page_outs": 0})
         if new_pairs:
             # fixed-width write-through from the staged slab: row
             # slot*max_fills + j holds the block extracted right after this
@@ -870,6 +956,8 @@ class ServeEngine:
             for r, bi, j in new_pairs:
                 ids[r.slot * max_fills + j] = r.blocks[bi]
             self.pool.write_staged(ids, staged, t)
+        for tn in self.tenants.values():
+            tn.compute(self.pool, now)
         return report
 
     def _block_demand(self, live: list[Request]
@@ -932,6 +1020,9 @@ class ServeEngine:
         stats["by_path"] = {
             path: {**st, "duplex_speedup": self.pool.duplex_speedup(path)}
             for path, st in self.pool.stats["by_path"].items()}
+        if self.tenants:
+            stats["tenants"] = {t.name: t.stats()
+                                for t in self.tenants.values()}
         return stats
 
 

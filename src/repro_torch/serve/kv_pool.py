@@ -173,7 +173,29 @@ class PagedKVPool:
                 f"allocated — speculative-free journal out of order")
         self._allocated[blocks] = True
 
+    def invalidate(self, blocks) -> None:
+        """Declare full-block overwrites: the caller rewrites these blocks
+        entirely this step (a batched whole-value SET), so a non-resident
+        block's host copy is dead data — it installs fresh instead of
+        paging in. Resident blocks are untouched (their overwrite is a
+        plain ``write``)."""
+        blocks = np.asarray(blocks, np.int32).reshape(-1)
+        if blocks.size == 0:
+            return
+        nonres = blocks[self.slot_of[blocks] < 0]
+        self._has_host[nonres] = False
+        self._dirty[nonres] = False
+        # the dead host copy's slot is released; the next spill re-places
+        # the block.
+        self.host.release(nonres)
+
     # -- residency ---------------------------------------------------------
+    def resident_blocks(self) -> np.ndarray:
+        return np.flatnonzero(self.slot_of >= 0)
+
+    def is_resident(self, blocks) -> np.ndarray:
+        return self.slot_of[np.asarray(blocks, int)] >= 0
+
     def check_invariants(self) -> None:
         """Raise if the block table is inconsistent."""
         slot_of = self.slot_of

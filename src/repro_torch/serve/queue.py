@@ -1,11 +1,12 @@
 """Request admission via the Policy protocol (CXLAimPod §4.4).
 
-Port of ``repro/serve/queue.py`` (LLM requests; the tenant traffic
-profiles come with the tenants). Each waiting prefill is presented to a
-``core.policies`` policy as a stream whose backlog is its remaining KV
-traffic, with hint fields resolved from the ``HintTree``; ``dispatch``
-admits the top-weighted arrived requests into the free decode slots and
-feeds the service back through ``Policy.update``.
+Port of ``repro/serve/queue.py``. Each waiting request is presented to a
+``core.policies`` policy as a stream: an LLM prefill with its remaining KV
+traffic as backlog, a tenant request (KV store, vector search) with its
+declared ``TrafficProfile``, each with hint fields resolved from the
+``HintTree``. ``dispatch`` admits the top-weighted arrived requests while
+their tenant's budget lasts and feeds the service back through
+``Policy.update``.
 
 Everything here is host-side: ``Request`` objects are host mirrors of the
 engine's device slot state, and the policy's small float32 state lives on
@@ -37,13 +38,30 @@ STATE_OF_CODE = {S_PREFILL: PREFILL, S_DECODE: DECODE, S_DONE: DONE}
 _rid = itertools.count()
 
 
+@dataclasses.dataclass(frozen=True)
+class TrafficProfile:
+    """Declared link-traffic profile of one non-LLM tenant request: total
+    remaining bytes per direction plus the head-of-queue (next-step) mix,
+    which the duplex-aware policies read at dispatch time."""
+    backlog_read: float = 0.0
+    backlog_write: float = 0.0
+    head_read: float = 0.0
+    head_write: float = 0.0
+
+
 @dataclasses.dataclass(eq=False)
 class Request:
-    """One LLM request moving through the serving engine."""
+    """One request moving through the serving engine. ``tenant`` is
+    ``"llm"`` for generation requests, or the name of an attached
+    ``WorkloadAPI`` tenant, whose payload is ``work`` and whose declared
+    traffic is ``profile``."""
     prompt: np.ndarray                  # (P,) int32 prompt token ids
     max_new_tokens: int
     arrival_step: int = 0
     hint_path: str = "/serve/llm/prefill"
+    tenant: str = "llm"
+    work: object = None                 # tenant payload (non-LLM requests)
+    profile: TrafficProfile | None = None
     rid: int = dataclasses.field(default_factory=lambda: next(_rid))
     state: str = WAITING
     consumed: int = 0                   # prompt tokens fed so far
@@ -173,13 +191,22 @@ class RequestQueue:
             if r is None or r.arrival_step > now:
                 continue
             arrived[i] = True
-            # prefill writes the prompt's KV; decode then re-reads the
-            # whole cache once per generated token (triangular sum).
-            n_p, n_g = r.prompt_len, r.max_new_tokens
-            backlog_w[i] = n_p * self.kv_bytes
-            backlog_r[i] = (n_g * n_p + n_g * (n_g + 1) / 2) * self.kv_bytes
-            head_w[i] = min(n_p, 4) * self.kv_bytes
-            head_r[i] = 0.0
+            if r.profile is not None:
+                # tenant request: declared traffic profile (bytes).
+                backlog_r[i] = r.profile.backlog_read
+                backlog_w[i] = r.profile.backlog_write
+                head_r[i] = r.profile.head_read
+                head_w[i] = r.profile.head_write
+            else:
+                # LLM request: prefill writes the prompt's KV; decode then
+                # re-reads the whole cache once per generated token
+                # (triangular sum).
+                n_p, n_g = r.prompt_len, r.max_new_tokens
+                backlog_w[i] = n_p * self.kv_bytes
+                backlog_r[i] = (n_g * n_p + n_g * (n_g + 1) / 2) \
+                    * self.kv_bytes
+                head_w[i] = min(n_p, 4) * self.kv_bytes
+                head_r[i] = 0.0
             h = self.hints.resolve(r.hint_path).resolved()
             hint_rf[i] = h.read_fraction
             hint_pri[i] = h.priority
@@ -198,9 +225,18 @@ class RequestQueue:
         )
         return obs, arrived
 
-    def dispatch(self, now: int, n_free: int) -> list[Request]:
-        """Admit up to ``n_free`` arrived requests, policy-ordered."""
-        cap = int(n_free)
+    def dispatch(self, now: int,
+                 n_free: int | dict[str, int]) -> list[Request]:
+        """Admit arrived requests, policy-ordered.
+
+        ``n_free`` is either an int — a tenant-agnostic slot budget — or a
+        dict mapping tenant name to that tenant's free slots; the policy
+        ranks the whole waiting set and the top-weighted requests are
+        taken while their tenant's budget lasts (a full tenant never
+        blocks admission of another's requests)."""
+        budgets = dict(n_free) if isinstance(n_free, dict) else None
+        cap = (sum(budgets.values()) if budgets is not None
+               else int(n_free))
         if cap <= 0 or not self.waiting(now):
             return []
         obs, arrived = self._observe(now)
@@ -213,7 +249,16 @@ class RequestQueue:
             np.flatnonzero(arrived).tolist(),
             key=lambda i: (-w[i], self._slots[i].arrival_step,
                            self._slots[i].rid))
-        take = order[:cap]
+        take = []
+        for i in order:
+            if len(take) >= cap:
+                break
+            if budgets is not None:
+                t = self._slots[i].tenant
+                if budgets.get(t, 0) <= 0:
+                    continue
+                budgets[t] -= 1
+            take.append(i)
         admitted = []
         moved_r = np.zeros((self.capacity,), np.float32)
         moved_w = np.zeros((self.capacity,), np.float32)
@@ -223,7 +268,11 @@ class RequestQueue:
             req.state = PREFILL
             req.admitted_step = now
             admitted.append(req)
-            moved_w[i] = req.prompt_len * self.kv_bytes
+            if req.profile is not None:
+                moved_r[i] = req.profile.head_read
+                moved_w[i] = req.profile.head_write
+            else:
+                moved_w[i] = req.prompt_len * self.kv_bytes
         fb = policies_lib.Feedback(
             moved_read=torch.from_numpy(moved_r),
             moved_write=torch.from_numpy(moved_w),

@@ -1,5 +1,6 @@
 """On-card tests of the port (marker ``cuda``): the CUDA kernels against
-their plain versions, and the serving engine token-exact on the GPU.
+their plain versions, and the serving engine token-exact on the GPU, with
+and without tenants.
 They skip where there is no CUDA device; on a machine with one, run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -14,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import duplex_stream as ds  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import vector_distance as vd  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -87,4 +89,73 @@ def test_engine_token_exact_on_the_card(cuda):
         for j in range(3):
             np.testing.assert_array_equal(outs[rids[lo + j]], want[j])
     assert eng.stats()["host_blocked"] == 1
+    eng.pool.check_invariants()
+
+
+@pytest.mark.parametrize("shape", [(4, 3, 16, 64), (1, 1, 8, 128),
+                                   (8, 5, 32, 32), (4, 2, 16, 11520),
+                                   (12, 3, 16, 1001)])
+def test_l2_distance_matches_plain_version(cuda, shape):
+    Q, N, T, D = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    q = torch.randn((Q, D), generator=g).to(cuda)
+    blocks = torch.randn((N, T, D), generator=g).to(torch.bfloat16).to(cuda)
+    before = vd.LAUNCHES["l2_distance"]
+    got = ops.l2_distance(q, blocks)
+    torch.cuda.synchronize()
+    assert vd.LAUNCHES["l2_distance"] == before + 1
+    torch.testing.assert_close(got, ref.l2_distance(q, blocks), rtol=1e-4,
+                               atol=1e-3)
+    self_d = ops.l2_distance(blocks[1 % N, 3][None].float(), blocks)
+    assert self_d[1 % N, 0, 3] == self_d.min() <= 1e-2
+
+
+def test_l2_wrapper_rejects_bad_inputs(cuda):
+    q = torch.randn((2, 32), device=cuda)
+    blocks = torch.randn((3, 4, 32), device=cuda).to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        vd.l2_distance(q, blocks.float())
+    with pytest.raises(ValueError, match="shape"):
+        vd.l2_distance(q[:, :16].contiguous(), blocks)
+    with pytest.raises(ValueError, match="contiguous"):
+        vd.l2_distance(q, blocks.transpose(0, 1))
+
+
+def test_tenant_engine_on_the_card(cuda):
+    """Both tenants co-served with decode: tokens exact, every kernel
+    launched, the withdrawn scope never fused."""
+    from repro_torch.models import registry
+    from repro_torch.serve import (EngineConfig, KVStoreTenant, ServeEngine,
+                                   VectorSearchTenant, reference_decode)
+    api = registry.build("smollm-135m", smoke=True, device="cuda")
+    params = api.init(torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(1).integers(
+        0, api.cfg.vocab, (4, 7)).astype(np.int32)
+    eng = ServeEngine(api, params, EngineConfig(
+        max_batch=2, cache_len=64, block_tokens=4, hbm_blocks=10,
+        prefill_chunk=2, max_queue=12, megastep=4, pipeline_depth=2,
+        device="cuda"))
+    kv = eng.add_tenant(KVStoreTenant(n_slots=2, ops_per_step=1,
+                                      store_blocks=12))
+    kv.preload(12)
+    vec = eng.add_tenant(VectorSearchTenant(n_slots=1, visits_per_step=2,
+                                            data_blocks=6))
+    rids = [eng.submit(prompts[i], 8, arrival_step=2 * i).rid
+            for i in range(4)]
+    kv.submit("sequential", n_steps=24)
+    kv.submit("read_heavy", n_steps=24)
+    vec.submit(n_steps=24)
+    ds.reset_launches()
+    vd.reset_launches()
+    outs = eng.run(max_steps=300)
+    for lo in range(0, 4, 2):
+        want = reference_decode(api, params, prompts[lo:lo + 2], 8,
+                                cache_len=64).cpu().numpy()
+        for j in range(2):
+            np.testing.assert_array_equal(outs[rids[lo + j]], want[j])
+    assert vd.LAUNCHES["l2_distance"] > 0
+    assert ds.LAUNCHES["quant_stream"] + ds.LAUNCHES["dequant_stream"] > 0
+    withdrawn = eng.paging_stats()["by_path"]["/serve/redis/read_heavy"]
+    assert withdrawn["fused_calls"] == 0
+    assert kv.ops_done > 0 and vec.queries_done > 0
     eng.pool.check_invariants()

@@ -129,3 +129,50 @@ def test_engine_defaults_to_cuda(api, params):
         pytest.skip("this checks the no-GPU behaviour")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(api, params, EngineConfig())
+
+
+def _tenant_engine(api, params, megastep, depth):
+    from repro_torch.serve import KVStoreTenant, VectorSearchTenant
+    eng = ServeEngine(api, params, EngineConfig(
+        **dict(BASE, hbm_blocks=12, max_queue=12), megastep=megastep,
+        pipeline_depth=depth, device="cpu"))
+    kv = eng.add_tenant(KVStoreTenant(n_slots=2, ops_per_step=1,
+                                      store_blocks=10))
+    kv.preload(8)
+    vec = eng.add_tenant(VectorSearchTenant(n_slots=1, n_queries=2,
+                                            visits_per_step=1,
+                                            data_blocks=4))
+    kv.submit("sequential", n_steps=30)
+    kv.submit("read_heavy", n_steps=36, arrival_step=3)
+    vec.submit(n_steps=40, arrival_step=1)
+    return eng, kv, vec
+
+
+@pytest.mark.parametrize("megastep", [1, 8])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_token_exact_with_tenants_attached(api, params, megastep, depth):
+    """KV-store and vector tenants share the pool, the paging transaction
+    and the admission queue; LLM tokens stay exact. The tenants outlive
+    the LLM requests, so the run ends in tenant-only megasteps: they run
+    their paging and compute with no program dispatch and no readback,
+    and never count as a blocked boundary. At depth 2 even the last LLM
+    readback has one of them dispatched ahead of it, so no boundary
+    blocks at all."""
+    prompts = np.random.default_rng(4).integers(
+        0, api.cfg.vocab, (4, 6)).astype(np.int32)
+    ref = _reference(api, params, prompts, 8, 64, BASE["max_batch"])
+    eng, kv, vec = _tenant_engine(api, params, megastep, depth)
+    rids = [eng.submit(prompts[i], 8, arrival_step=2 * i).rid
+            for i in range(4)]
+    outs = eng.run(max_steps=300)
+    for i, rid in enumerate(rids):
+        np.testing.assert_array_equal(outs[rid], ref[i])
+    assert kv.ops_done > 0 and vec.queries_done > 0
+    assert not eng.pending()
+    eng.pool.check_invariants()
+    st = eng.stats()
+    assert st["megasteps"] > st["host_dispatches"]   # tenant-only ones
+    assert st["host_blocked"] == (st["host_dispatches"] if depth == 1
+                                  else 0)
+    assert eng.paging_stats()["tenants"] == {
+        "redis": kv.stats(), "vectordb": vec.stats()}

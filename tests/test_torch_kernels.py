@@ -1,7 +1,8 @@
-"""Port's duplex-stream kernels on the CPU: the plain PyTorch versions
-against the JAX package's Pallas kernels (interpret mode on the CPU) on
-the shapes of ``tests/test_kernels.py``, with its tolerances, and the
-wrapper contract (CUDA tensors only, nothing built at import)."""
+"""Port's kernels on the CPU (the duplex stream and ``l2_distance``): the
+plain PyTorch versions against the JAX package's Pallas kernels
+(interpret mode on the CPU) on the shapes of ``tests/test_kernels.py``,
+with its tolerances, and the wrapper contract (CUDA tensors only, nothing
+built at import, one library per source)."""
 
 import numpy as np
 import pytest
@@ -15,8 +16,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import duplex_stream as ds  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import vector_distance as vd  # noqa: E402
 
 SHAPES = [(4, 64, 128), (2, 32, 256), (1, 16, 64)]
 
@@ -131,7 +134,69 @@ def test_no_fallback_to_the_plain_version_off_the_cpu():
 def test_nothing_is_built_at_import():
     assert ds._lib is None
     path = ds.library_path()
-    assert path.parent == ds.BUILD_DIR
+    assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libduplex_stream_")
-    assert "arch=compute_90a,code=sm_90a" in ds.NVCC_FLAGS
-    assert "--use_fast_math" not in ds.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+# -- l2_distance (vector-search tenant) --------------------------------------
+
+def _l2_inputs(Q, N, T, D, seed):
+    """The same queries and bf16 blocks for both packages (f32 -> bf16
+    rounds to nearest even in both frameworks)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((Q, D)).astype(np.float32)
+    b = rng.standard_normal((N, T, D)).astype(np.float32)
+    j = (jnp.asarray(q), jnp.asarray(b).astype(jnp.bfloat16))
+    t = (torch.from_numpy(q), torch.from_numpy(b).to(torch.bfloat16))
+    return j, t
+
+
+@pytest.mark.parametrize("Q,N,T,D", [(4, 3, 16, 64), (1, 1, 8, 128),
+                                     (8, 5, 32, 32)])
+def test_l2_distance_vs_jax(Q, N, T, D):
+    """tests/test_kernels.py:165-175: the port's plain version against the
+    Pallas kernel (interpret mode), rtol 1e-4, atol 1e-3."""
+    j, t = _l2_inputs(Q, N, T, D, seed=Q * 100 + D)
+    want = np.asarray(jops.l2_distance(*j))
+    got = ref.l2_distance(*t)
+    assert got.shape == (N, Q, T) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref.l2_distance(*j)),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_l2_zero_distance_to_self():
+    _, (_, blocks) = _l2_inputs(1, 2, 8, 64, seed=22)
+    d = ops.l2_distance(blocks[1, 3][None].float(), blocks)
+    assert d[1, 0, 3] == d.min()
+    assert d[1, 0, 3] <= 1e-2
+
+
+def test_l2_cpu_tensor_goes_to_the_plain_version():
+    _, t = _l2_inputs(3, 2, 4, 40, seed=9)
+    assert torch.equal(ops.l2_distance(*t), ref.l2_distance(*t))
+
+
+def test_l2_off_the_cpu_reaches_only_the_kernel():
+    _, t = _l2_inputs(2, 2, 4, 16, seed=10)
+    with pytest.raises(ValueError, match="CUDA"):
+        vd.l2_distance(*t)
+    meta = [x.to("meta") for x in t]
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.l2_distance(*meta)
+
+
+def test_each_library_is_keyed_by_its_own_source():
+    """Both kernel modules build through ``kernels/_build.py``; each
+    library's name carries its own source's stem and hash, and nothing is
+    built when the modules are imported."""
+    assert vd._lib is None
+    paths = {m: m.library_path() for m in (ds, vd)}
+    assert paths[ds] != paths[vd]
+    for mod, path in paths.items():
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith(f"lib{mod.SOURCE.stem}_")
+        assert path == _build.library_path(mod.SOURCE)
+    assert vd.SOURCE.name == "vector_distance.cu" and vd.SOURCE.exists()
