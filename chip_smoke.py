@@ -8,8 +8,8 @@ It builds the CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each kernel against its
 plain PyTorch version on the card, and drives two serving paths at full
 width (smollm-135m: 30 layers, d_model 576, vocab 49152; random seeded
-weights), each with the launch counters set to 0 just before it and read
-just after:
+weights), and the full-sequence forward of two models, each with the
+launch counters set to 0 just before it and read just after:
 
   * the main path: LLM decode through the duplex-paged KV pool, every
     request token for token against the port's static-batch
@@ -19,7 +19,14 @@ just after:
     the admission queue; LLM tokens exact, tenant data checked against
     its seeds and a brute-force scan, the withdrawn scope
     (``/serve/redis/read_heavy``) never fused, and all four kernels
-    (``l2_distance`` too) launched.
+    (``l2_distance`` too) launched;
+  * the forward path: ``forward`` / ``loss_fn`` / ``prefill`` /
+    ``make_prefill_step`` of smollm-135m FULL (B=4, S=2048) and
+    paligemma-3b FULL (18 layers, hd 256; B=2, 256 stub patch embeddings
+    as the prefix-LM prefix and 256 text tokens) under
+    ``inference_mode``; ``use_kernel=True`` must launch the
+    ``flash_attention`` kernel once per layer and agree with the plain
+    forward, and prefill then decode must continue the full forward.
 
 The last line of its output is a JSON
 object ``{"ok": true, "device": {...}}``; the line before it is the
@@ -30,6 +37,7 @@ a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import subprocess
@@ -47,6 +55,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published rates (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 # the serving run: smollm-135m FULL, an oversubscribed pool so blocks page
 # both ways (about 18 MB of HBM blocks, 24 MB of int8 host tier).
@@ -62,13 +71,57 @@ TENANT_SERVE = dict(max_batch=4, cache_len=256, block_tokens=16,
                     prefill_chunk=4)
 TENANT_LLM_REQUESTS, TENANT_GEN, TENANT_STEPS = 8, 32, 48
 
+STREAMS = ("duplex_kv_stream", "quant_stream", "dequant_stream")
+
 # what each kernel replaces in the JAX package (the pallas_call line)
 REPLACES = {
     "duplex_kv_stream": "src/repro/kernels/duplex_stream.py:157",
     "quant_stream": "src/repro/kernels/duplex_stream.py:111",
     "dequant_stream": "src/repro/kernels/duplex_stream.py:93",
     "l2_distance": "src/repro/kernels/vector_distance.py:50",
+    "flash_attention": "src/repro/kernels/flash_attention.py:123",
 }
+
+# flash_attention against ref.attention on the card, at the reference's
+# tolerances (tests/test_kernels.py:36-48): atol = rtol = 3e-2 in bf16
+# (the plain version rounds P to bf16 before P.V, the kernel keeps it in
+# f32), 2e-5 in f32. (B, S, H, KV, hd, dtype, mask keywords)
+FLASH_CHECKS = [
+    (4, 2048, 9, 3, 64, torch.bfloat16, {}),                 # smollm path
+    (2, 512, 8, 1, 256, torch.bfloat16, {"prefix_len": 256}),  # paligemma
+    (1, 256, 2, 1, 64, torch.bfloat16, {"prefix_len": 160}),
+    (1, 256, 2, 1, 64, torch.bfloat16, {"window": 64, "prefix_len": 32}),
+    (2, 256, 4, 2, 64, torch.float32, {}),
+    (1, 256, 2, 2, 64, torch.bfloat16, {"window": 96}),
+    (1, 128, 2, 2, 64, torch.bfloat16, {"causal": False}),
+    (1, 256, 4, 4, 128, torch.bfloat16, {}),
+    # both path shapes in f32, where 2e-5 holds: in bf16, 3e-2 is about the
+    # size of |o| itself in the last rows at S = 2048 (~0.03)
+    (4, 2048, 9, 3, 64, torch.float32, {}),
+    (2, 512, 8, 1, 256, torch.float32, {"prefix_len": 256}),
+]
+
+# the forward path: (arch, batch, sequence); paligemma's first 256
+# positions are the stub patch embeddings, then 256 text tokens
+FORWARD_RUNS = [("smollm-135m", 4, 2048), ("paligemma-3b", 2, 512)]
+DECODE_STEPS = 4
+# stated in PERF.md before the first full run: the loss with the
+# kernel against the plain forward, relative; and the logits of prefill
+# then decode against the full plain forward, absolute
+LOSS_RTOL = 1e-3
+DECODE_ATOL = 0.1
+# the whole-model logits with the kernel against the plain forward,
+# absolute. On an H100 (PERF.md) the kernel was 0.0586 (smollm) and
+# 0.0957 (paligemma) off, and the plain forward with a mask fault
+# 0.39-7.4 off; the loss cannot tell them apart. Each run checks again
+# that its control fault exceeds the limit.
+LOGITS_ATOL = 0.25
+# profiler device time against CUDA-event stream time (measure_flash)
+FLASH_EVENT_SHARE = 0.10
+# spin kernels that open each profiler window, and how many profiles
+# device_events takes before it gives up
+PROFILE_LEAD = 32
+PROFILE_TRIES = 5
 
 
 def fail(msg: str) -> None:
@@ -97,36 +150,68 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(fn, iters: int = 20, warmup: int = 1) -> list:
-    """The work the profiler saw run on the card over ``iters`` calls of
-    ``fn``, as (name, count, device µs) per kind of device operation
-    (kernel, copy or memset; host-side runtime calls are left out).
-    Reads the raw trace events: ``key_averages()`` takes minutes over the
-    million operations of a serving run. Raises if the profiler recorded
-    no device time."""
+def _profile(fn, iters: int) -> tuple[Counter, Counter]:
+    """One profile of ``iters`` calls of ``fn``: per kind of device
+    operation (kernel, copy or memset; host-side runtime calls are left
+    out), its count and device ns. Reads the raw trace events:
+    ``key_averages()`` takes minutes over the million operations of a
+    serving run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # late in a process the profiler has been seen to lose the first
+        # few device operations of a window (PERF.md): open it with spin
+        # kernels, which the counts leave out
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     count, ns = Counter(), Counter()
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0 \
+                and "spin_kernel" not in e.name():
             count[e.name()] += 1
             ns[e.name()] += e.duration_ns()
-    if not count:
-        fail("the profiler recorded no device time on the card")
-    return [(k, count[k], ns[k] / 1e3) for k in count]
+    return count, ns
 
 
-def device_profile(fn, iters: int = 20, warmup: int = 1
-                   ) -> tuple[float, float]:
+def device_events(fn, iters: int = 20, warmup: int = 1,
+                  per_call: dict | None = None) -> list:
+    """The work the profiler saw run on the card over ``iters`` calls of
+    ``fn``, as (name, count, device µs) per kind of device operation.
+
+    The profiler has been seen to drop device events (PERF.md), so
+    a profile is taken as measured only when every kind of operation in
+    it ran a whole number of times per call, each name-substring of
+    ``per_call`` matched that many operations per call, and an earlier
+    such profile saw the same operations; otherwise the profile is taken
+    again. Fails after PROFILE_TRIES profiles without such a pair."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    kept, seen = [], []
+    for _ in range(PROFILE_TRIES):
+        count, ns = _profile(fn, iters)
+        seen.append(sum(count.values()))
+        whole = bool(count) and all(n % iters == 0 for n in count.values())
+        named = all(sum(n for k, n in count.items() if sub in k)
+                    == want * iters for sub, want in (per_call or {}).items())
+        if whole and named and count in kept:
+            return [(k, count[k], ns[k] / 1e3) for k in count]
+        if whole and named:
+            kept.append(count)
+    fail(f"the profiler did not see the same whole calls twice in "
+         f"{PROFILE_TRIES} "
+         f"profiles of {iters} calls (operations seen: {seen}; last: "
+         f"{dict(count)}, per call wanted {per_call})")
+
+
+def device_profile(fn, iters: int = 20, warmup: int = 1,
+                   per_call: dict | None = None) -> tuple[float, float]:
     """Per call of ``fn``: device ms and the count of device operations."""
-    rows = device_events(fn, iters, warmup)
+    rows = device_events(fn, iters, warmup, per_call)
     return (sum(us for _, _, us in rows) / 1e3 / iters,
             sum(n for _, n, _ in rows) / iters)
 
@@ -288,6 +373,284 @@ def measure_l2(shape) -> dict:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+def flash_inputs(B, S, H, KV, hd, dtype, seed: int):
+    """(q, k, v) on the card in the reference's layout, N(0, 1) from a
+    seeded CPU generator."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=g)
+    k = torch.randn((B, S, KV, hd), generator=g)
+    v = torch.randn((B, S, KV, hd), generator=g)
+    return tuple(x.to(dtype).cuda() for x in (q, k, v))
+
+
+def compare_flash(got, want, where) -> float:
+    """The reference's tolerance: atol = rtol = 3e-2 in bf16, 2e-5 in f32.
+    Returns the largest absolute difference."""
+    tol = 3e-2 if want.dtype == torch.bfloat16 else 2e-5
+    if got.shape != want.shape or got.dtype != want.dtype \
+            or not torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol):
+        fail(f"flash_attention differs from the plain version at {where}")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def check_flash() -> None:
+    """The flash_attention kernel against ref.attention at every shape of
+    FLASH_CHECKS (f32 products in the plain version: TF32 off), and the
+    reference's divisibility contract on the card."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for i, (B, S, H, KV, hd, dtype, mask) in enumerate(FLASH_CHECKS):
+        q, k, v = flash_inputs(B, S, H, KV, hd, dtype, seed=200 + i)
+        where = f"B,S,H,KV,hd = {B},{S},{H},{KV},{hd} {dtype} {mask}"
+        err = compare_flash(fa.flash_attention(q, k, v, **mask),
+                            ref.attention(q, k, v, **mask), where)
+        torch.cuda.synchronize()
+        print(f"flash_attention matches the plain version at {where} "
+              f"(max abs err {err:.3g})", flush=True)
+    q, k, v = flash_inputs(1, 200, 2, 2, 64, torch.bfloat16, seed=0)
+    try:
+        ops.flash_attention(q, k, v)
+    except ValueError as e:
+        print(f"flash_attention refuses S=200 on the card: {e}", flush=True)
+    else:
+        fail("flash_attention accepted S=200 with 128-blocks")
+
+
+def visible_mask(S: int, causal=True, window=None, prefix_len=0):
+    """The (query, key) pairs the model's mask keeps for one (batch, head),
+    as an (S, S) bool array: ``layers._mask_bias``'s rule."""
+    qi = np.arange(S)[:, None]
+    kj = np.arange(S)[None, :]
+    vis = np.ones((S, S), bool)
+    if causal:
+        vis = (kj <= qi) | ((prefix_len > 0) & (kj < prefix_len))
+    if window is not None:
+        vis &= kj > qi - window
+    return vis
+
+
+def measure_flash(shape, mask: dict) -> dict:
+    """Time the flash_attention kernel, its plain version and one call of
+    PyTorch's ``scaled_dot_product_attention`` (the yardstick, which the
+    port never calls: ``is_causal=True`` for a causal mask, else
+    ``attn_mask`` = ``visible_mask``; ``enable_gqa``) on the same tensors
+    at (B, S, H, KV, hd) in bf16, by the profiler's device time, with the
+    bounds of this work: visible pairs x 4 hd FLOP against 67 TFLOP/s f32
+    on CUDA cores (``bound_ms``: the kernel's arithmetic) and 989 TFLOP/s
+    bf16 on tensor cores (``bound_ms_bf16``), and q, k, v and o once
+    against 3.35 TB/s.
+
+    The times are checked, not taken on trust: the kernel must be the one
+    device operation of its call and reach no less than ``bound_ms``, and
+    its device time must agree with CUDA events over back-to-back calls
+    within FLASH_EVENT_SHARE (a call far longer than its launch keeps the
+    stream busy); the plain version and SDPA must agree with
+    ``ref.attention`` within the reference's tolerance, reach no less
+    than ``bound_ms_bf16``, and take no more device time than stream time
+    (within FLASH_EVENT_SHARE)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    B, S, H, KV, hd = shape
+    q, k, v = flash_inputs(B, S, H, KV, hd, torch.bfloat16, seed=99)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    vis = visible_mask(S, **mask)
+    if mask:
+        attn_mask = torch.from_numpy(vis).cuda()
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=attn_mask, enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    fn = lambda: fa.flash_attention(q, k, v, **mask)
+    plain = lambda: ref.attention(q, k, v, **mask)
+    want = plain()
+    err = compare_flash(fn(), want, shape)
+    lib_err = compare_flash(lib().transpose(1, 2), want, f"{shape}, SDPA")
+    pairs = B * H * int(vis.sum())
+    flops = 4 * hd * pairs
+    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f32 = flops / FP32_OPS_PER_S * 1e3
+    bound, bound_bf16 = max(t_bytes, t_f32), \
+        max(t_bytes, flops / BF16_TC_OPS_PER_S * 1e3)
+    ms = device_profile(fn, iters=10, per_call={"flash_kernel": 1})
+    plain_ms = device_profile(plain, iters=5)[0]
+    lib_ms = device_profile(lib, iters=10)[0]
+    if ms[1] != 1:
+        fail(f"flash_attention at {shape}: {ms[1]} device operations per "
+             f"call, want 1")
+    ms = ms[0]
+    ev = {"kernel": cuda_ms(fn, iters=10), "plain": cuda_ms(plain, iters=5),
+          "SDPA": cuda_ms(lib, iters=10)}
+    print(f"flash_attention at {shape} {mask}: device ms (profiler) / "
+          f"stream ms (CUDA events): kernel {ms:.4f} / {ev['kernel']:.4f}, "
+          f"plain {plain_ms:.4f} / {ev['plain']:.4f}, SDPA {lib_ms:.4f} / "
+          f"{ev['SDPA']:.4f}", flush=True)
+    if abs(ms - ev["kernel"]) > FLASH_EVENT_SHARE * ev["kernel"]:
+        fail(f"flash_attention at {shape}: the profiler's {ms} ms and the "
+             f"CUDA events' {ev['kernel']} ms differ by more than "
+             f"{FLASH_EVENT_SHARE:.0%}")
+    for name, t, floor in (("kernel", ms, bound), ("plain", plain_ms,
+                                                   bound_bf16),
+                           ("SDPA", lib_ms, bound_bf16)):
+        if t < floor or t > (1 + FLASH_EVENT_SHARE) * ev[name]:
+            fail(f"flash_attention at {shape}: {name} {t} ms by the "
+                 f"profiler is below its bound {floor} ms or above its "
+                 f"stream time {ev[name]} ms")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": REPLACES["flash_attention"], "shape": list(shape),
+            "mask": mask, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_f32 else "operations",
+            "bound_ms_bf16": bound_bf16, "visible_pairs": pairs,
+            "flop": flops, "bytes": nbytes, "library_ms": lib_ms,
+            "library_max_abs_err": lib_err}
+
+
+def forward_phase(arch: str, B: int, S: int) -> dict:
+    """The forward path of ``arch`` FULL (random weights from a seed) on
+    the card under ``inference_mode``: ``forward`` with the kernel must
+    launch it once per layer and without it never; layer 0's attention,
+    kernel against plain, within 3e-2; the logits within LOGITS_ATOL,
+    which a control (the plain forward with a mask fault) must exceed;
+    the loss with and without the kernel within LOSS_RTOL; one forward
+    profiled (device time, the kernel's share, one kernel launch per
+    layer seen by the profiler); ``prefill`` then DECODE_STEPS
+    ``decode_step``s against the full plain forward within DECODE_ATOL;
+    ``make_prefill_step``'s argmax equal to the forward's. Returns the
+    kernel's launches in one forward and the forward's wall time."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import layers as nn
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+
+    api = registry.build(arch, smoke=False, device="cuda")
+    cfg = api.cfg
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator().manual_seed(0))
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, S + DECODE_STEPS))).cuda()
+    tokens = toks[:, :S]
+    labels = toks[:, 1:S + 1].clone()
+    pe = None
+    if cfg.prefix_len:
+        pe = torch.from_numpy((0.1 * rng.standard_normal(
+            (B, cfg.prefix_len, cfg.d_model))).astype(np.float32)).to(
+            torch.bfloat16).cuda()
+        labels[:, :cfg.prefix_len] = -1      # no loss on the image prefix
+    batch = {"tokens": tokens, "labels": labels, "prefix_embeds": pe}
+    with torch.inference_mode():
+        T.forward(params, cfg, tokens, pe, use_kernel=True)   # warm-up
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        lk, _ = T.forward(params, cfg, tokens, pe, use_kernel=True)
+        torch.cuda.synchronize()
+        wall_kernel = time.perf_counter() - t0
+        launches = fa.LAUNCHES["flash_attention"]
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        lp, _ = T.forward(params, cfg, tokens, pe)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+        if launches != cfg.num_layers or fa.LAUNCHES["flash_attention"]:
+            fail(f"{arch}: forward launched the kernel {launches} times "
+                 f"with use_kernel (want {cfg.num_layers}) and "
+                 f"{fa.LAUNCHES['flash_attention']} without (want 0)")
+        if lk.shape != (B, S, cfg.vocab) or not torch.isfinite(lk).all():
+            fail(f"{arch}: forward logits {tuple(lk.shape)} not finite")
+        # where one forward's device time goes: the kernel against the rest
+        rows = device_events(lambda: T.forward(params, cfg, tokens, pe,
+                                               use_kernel=True),
+                             iters=1, warmup=0,
+                             per_call={"flash_kernel": cfg.num_layers})
+        device_ms = sum(us for _, _, us in rows) / 1e3
+        flash_ms = sum(us for n, _, us in rows if "flash_kernel" in n) / 1e3
+
+        layer = {k: {kk: vv[0] for kk, vv in v.items()}
+                 for k, v in params["layers"].items()}
+        h = nn.rmsnorm(layer["ln1"], T._embed_tokens(params, cfg, tokens, pe))
+        spec = cfg.attn_spec()
+        a_k = nn.attn_apply(layer["attn"], h, spec, use_kernel=True)
+        a_p = nn.attn_apply(layer["attn"], h, spec)
+        if not torch.allclose(a_k.float(), a_p.float(), atol=3e-2,
+                              rtol=3e-2):
+            fail(f"{arch}: layer 0 attention, kernel against plain, beyond "
+                 f"3e-2: {(a_k.float() - a_p.float()).abs().max().item()}")
+        layer0_err = (a_k.float() - a_p.float()).abs().max().item()
+
+        d = (lk.float() - lp.float()).abs()
+        agree = (lk.float().argmax(-1) == lp.float().argmax(-1)).float()
+        if not d.max().item() <= LOGITS_ATOL:
+            fail(f"{arch}: logits with the kernel differ from the plain "
+                 f"forward's by {d.max().item()} (limit {LOGITS_ATOL})")
+        # the control: a mask fault in the plain forward must break the
+        # limit. Without a prefix the last 64 queries lose one 64-key tile
+        # (a window of S - 64); with one, the prefix stops halfway, which
+        # is what the Pallas kernel's block skip does to paligemma's 256
+        # prefix keys at 128-blocks (ROADMAP Queue 3)
+        fault = ({"prefix_len": cfg.prefix_len // 2} if cfg.prefix_len
+                 else {"window": S - 64})
+        lc, _ = T.forward(params, dataclasses.replace(cfg, **fault),
+                          tokens, pe)
+        control = (lc.float() - lp.float()).abs().max().item()
+        del lc
+        if not control > LOGITS_ATOL:
+            fail(f"{arch}: the control fault {fault} moved the "
+                 f"logits by {control}, within the limit {LOGITS_ATOL}: the "
+                 f"logit check cannot see a fault of that size")
+        loss_k, _ = T.loss_fn(params, cfg, batch, use_kernel=True)
+        loss_p, _ = api.loss_fn(params, batch)
+        rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        if not rel <= LOSS_RTOL:
+            fail(f"{arch}: loss {loss_k.item()} with the kernel, "
+                 f"{loss_p.item()} without: relative {rel} > {LOSS_RTOL}")
+        del lk
+
+        full, _ = T.forward(params, cfg, toks, pe)
+        lg, cache = T.prefill(params, cfg, tokens, pe,
+                              cache_len=S + DECODE_STEPS)
+        gaps = [(lg[:, -1].float() - full[:, S - 1].float()).abs().max()
+                .item()]
+        for i in range(DECODE_STEPS):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device="cuda")
+            ld, cache = api.decode_step(params, cache, toks[:, S + i], pos)
+            gaps.append((ld.float() - full[:, S + i].float()).abs().max()
+                        .item())
+        if not max(gaps) <= DECODE_ATOL:
+            fail(f"{arch}: prefill then decode differs from the full "
+                 f"forward by {gaps} (limit {DECODE_ATOL})")
+        nxt, _ = make_prefill_step(api)(params, batch)
+        if not torch.equal(nxt, lp[:, -1].float().argmax(-1)):
+            fail(f"{arch}: make_prefill_step's argmax differs from the "
+                 f"forward's last position")
+    out = {"arch": arch, "batch": B, "seq": S, "layers": cfg.num_layers,
+           "init_s": init_s, "launches": launches,
+           "forward_kernel_ms": wall_kernel * 1e3,
+           "forward_plain_ms": wall_plain * 1e3,
+           "forward_device_ms": device_ms, "flash_kernel_ms": flash_ms,
+           "device_ops": sum(n for _, n, _ in rows),
+           "tokens_per_s_kernel": B * S / wall_kernel,
+           "tokens_per_s_plain": B * S / wall_plain,
+           "layer0_attn_max_abs_err": layer0_err,
+           "logits_max_abs_diff": d.max().item(),
+           "control_fault": fault, "control_logits_max_abs_diff": control,
+           "logits_mean_abs_diff": d.mean().item(),
+           "argmax_agree": agree.mean().item(),
+           "loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+           "loss_rel_diff": rel, "prefill_decode_max_abs_diff": gaps}
+    print(json.dumps({"forward_phase": out}), flush=True)
+    return out
 
 
 def full_model():
@@ -564,8 +927,11 @@ def profile_serving(api, params, main_run_engine, main_tokens,
         repeat_tokens.extend(got[r] for r in rids)
 
     t0 = time.perf_counter()
-    rows = device_events(repeat, iters=1, warmup=0)
+    count, ns = _profile(repeat, iters=1)
     profiled_s = time.perf_counter() - t0
+    if not count:
+        fail("the profiler recorded no device time in the main run's repeat")
+    rows = [(k, count[k], ns[k] / 1e3) for k in count]
     if len(repeat_tokens) != len(main_tokens) or any(
             not np.array_equal(a, b)
             for a, b in zip(repeat_tokens, main_tokens)):
@@ -597,18 +963,20 @@ def profile_serving(api, params, main_run_engine, main_tokens,
 
 
 def build_all() -> None:
-    """Build both kernel libraries, one nvcc each, started together, and
-    print their logs."""
+    """Build every kernel library, one nvcc each, all started together,
+    and print their logs."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import duplex_stream as ds
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import vector_distance as vd
+    mods = (ds, vd, fa)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        logs = list(pool.map(lambda m: m.build(), (ds, vd)))
+    with ThreadPoolExecutor(len(mods)) as pool:
+        logs = list(pool.map(lambda m: m.build(), mods))
     print(f"built the CUDA kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for mod, log in zip((ds, vd), logs):
+    for mod, log in zip(mods, logs):
         print(f"{mod.SOURCE.name}:\n{log.strip()}", flush=True)
 
 
@@ -628,21 +996,29 @@ def main() -> int:
     sweep = [{k: row[k] for k in ("name", "shape", "ms", "plain_ms",
                                   "call_ms", "bound_ms")}
              for n in (2, 8, 32)
-             for row in (measure(name, (n, 16, D))
-                         for name in REPLACES if name != "l2_distance")]
+             for row in (measure(name, (n, 16, D)) for name in STREAMS)]
     sweep += [{k: row[k] for k in ("name", "shape", "ms", "plain_ms",
                                    "call_ms", "bound_ms")}
               for row in (measure_l2((4, n, 16, D)) for n in (2, 8, 32))]
     print(json.dumps({"kernel_sweep": sweep}), flush=True)
+    check_flash()
+    # device_events takes a profile as measured only when two agree: the
+    # profiler has been seen to drop this kernel's events (PERF.md)
+    flash_row = measure_flash((4, 2048, 9, 3, 64), {})
+    print(json.dumps({"flash_attention_paligemma": measure_flash(
+        (2, 512, 8, 1, 256), {"prefix_len": 256})}), flush=True)
 
     api, params = full_model()
     shapes_seen: dict = {}
     launches, profile_serving_run = serve_full(api, params, shapes_seen)
     l2_shapes: Counter = Counter()
     tenant_launches = serve_tenants(api, params, l2_shapes)
+    forward = {arch: forward_phase(arch, B, S)
+               for arch, B, S in FORWARD_RUNS}
+    torch.cuda.empty_cache()
 
     kernels = []
-    for name in ("duplex_kv_stream", "quant_stream", "dequant_stream"):
+    for name in STREAMS:
         shape = shapes_seen[name].most_common(1)[0][0]
         row = measure(name, shape)
         row["launches"] = launches[name]
@@ -650,6 +1026,10 @@ def main() -> int:
     row = measure_l2(l2_shapes.most_common(1)[0][0])
     row["launches"] = tenant_launches["l2_distance"]
     kernels.append(row)
+    # measured at the smollm-135m prefill shape; launched per forward
+    flash_row["launches"] = forward["smollm-135m"]["launches"]
+    flash_row["launches_paligemma"] = forward["paligemma-3b"]["launches"]
+    kernels.append(flash_row)
     # last: after a trace of a million operations, the profiler has been
     # seen to record nothing of a later short profile of a kernel
     profile_serving_run()

@@ -1,7 +1,8 @@
 """Architecture configs of the port (one module per arch) + lookup helpers.
 
-Mirror of ``repro/configs/__init__.py``; only the dense decoder the serving
-slice runs (smollm-135m) is ported so far.
+Mirror of ``repro/configs/__init__.py``; the dense decoders the port runs
+so far: smollm-135m (serving, prefill, loss) and paligemma-3b (prefill,
+loss).
 """
 
 import importlib
@@ -9,6 +10,7 @@ import importlib
 # arch-id -> module name
 _MODULES = {
     "smollm-135m": "smollm_135m",
+    "paligemma-3b": "paligemma_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,1 +1,2 @@
-"""Duplex-stream kernels: CUDA for Hopper, plain PyTorch for the CPU."""
+"""The port's kernels (duplex stream, L2 distance, flash attention):
+CUDA for Hopper, plain PyTorch for the CPU."""

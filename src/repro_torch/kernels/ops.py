@@ -3,9 +3,9 @@
 Mirror of ``repro/kernels/ops.py``. Each dispatches on the device of the
 tensors it is given: a CPU tensor goes to the plain version in
 ``kernels/ref.py``; any other tensor goes to the CUDA kernel in
-``kernels/duplex_stream.py`` or ``kernels/vector_distance.py``, which
-launches or raises. There is no fallback from the kernel to the plain
-version.
+``kernels/duplex_stream.py``, ``kernels/vector_distance.py`` or
+``kernels/flash_attention.py``, which launches or raises. There is no
+fallback from the kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import duplex_stream as _ds
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import vector_distance as _vd
 
@@ -63,3 +64,21 @@ def l2_distance(queries, blocks):
     if _on_cpu(queries):
         return ref.l2_distance(queries, blocks)
     return _vd.l2_distance(queries, blocks)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None, prefix_len: int = 0,
+                    q_block: int = 128, kv_block: int = 128):
+    """Blockwise attention. q: (B, S, H, hd); k, v: (B, S, KV, hd) ->
+    (B, S, H, hd). ``q_block``/``kv_block`` are the reference's
+    divisibility contract, checked on every device so the CPU and the
+    card refuse the same shapes; the CUDA kernel picks its own tiles."""
+    S = q.shape[1]
+    qb, kb = min(q_block, S), min(kv_block, S)
+    if S % qb or S % kb:
+        raise ValueError(f"S={S} must be divisible by blocks ({qb},{kb})")
+    if _on_cpu(q):
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             prefix_len=prefix_len)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               prefix_len=prefix_len)

@@ -1,14 +1,27 @@
 """Plain PyTorch versions of the port's kernels.
 
-Mirror of ``repro/kernels/ref.py:27-60``. The CPU path of
-``kernels.ops`` runs these, the CPU tests hold them against the JAX
-package, and ``chip_smoke.py`` holds the CUDA kernels against them on the
-card. Nothing on the serving path calls them for a CUDA tensor.
+Mirror of ``repro/kernels/ref.py:13-60`` (all but ``wkv6``). The CPU
+path of ``kernels.ops`` runs these, the CPU tests hold them against the
+JAX package, and ``chip_smoke.py`` holds the CUDA kernels against them on
+the card. Nothing on the serving or forward path calls them for a CUDA
+tensor.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models import layers as nn
+
+
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              prefix_len: int = 0):
+    """Dense reference attention (one q block over all of kv).
+    q: (B,S,H,hd); k,v: (B,S,KV,hd) -> (B,S,H,hd) in v's dtype."""
+    spec = nn.AttnSpec(num_heads=q.shape[2], num_kv_heads=k.shape[2],
+                       head_dim=q.shape[3], causal=causal, window=window,
+                       prefix_len=prefix_len, q_block=q.shape[1])
+    return nn.attention(q, k, v, spec)
 
 
 def quantize_int8(x: torch.Tensor):

@@ -1,12 +1,15 @@
-"""Dense-decoder layers of the port (the decode subset of
-``repro/models/layers.py``).
+"""Dense-decoder layers of the port (the dense-family subset of
+``repro/models/layers.py``: norms, RoPE, attention for the full sequence
+and for one decode token, SwiGLU, cross-entropy).
 
 Conventions follow the reference: params are nested dicts of tensors,
 layer stacks carry a leading L axis, activations and params default to
 bf16, and normalization, RoPE and softmax run in f32. bf16 rounding
 happens at the reference's casts: ``rmsnorm``'s output, ``rope``'s
 output, the softmax probabilities before P.V, and ``swiglu``'s product
-before the down projection.
+before the down projection. Nothing here takes a gradient, so the
+reference's ``jax.checkpoint`` around each attention q block has no
+counterpart.
 
 The decode cache is updated in place (the reference donates it to the
 jitted step and rebinds the result).
@@ -93,6 +96,7 @@ class AttnSpec:
     window: int | None = None        # sliding-window size (None = full)
     prefix_len: int = 0              # prefix-LM: first P kv positions visible
     qkv_bias: bool = False
+    q_block: int = 512               # chunking for the online-softmax path
     rope_theta: float = 10000.0
 
 
@@ -122,6 +126,57 @@ def _sdpa_block(q, k, v, bias) -> torch.Tensor:
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
     return out.reshape(B, Sq, H, hd)
+
+
+def attention(q, k, v, spec: AttnSpec, q_positions=None,
+              kv_positions=None) -> torch.Tensor:
+    """Chunked attention: a loop over q blocks, dense over kv (masked).
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd). Returns (B, Sq, H, hd).
+    Never materializes more than (B, q_block, H, Skv) scores.
+    """
+    Sq, Skv = q.shape[1], k.shape[1]
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=q.device)[None, :]
+    if kv_positions is None:
+        kv_positions = torch.arange(Skv, device=q.device)[None, :]
+    qb = min(spec.q_block, Sq)
+    if Sq % qb != 0:                      # fall back to one dense block
+        return _sdpa_block(q, k, v,
+                           _mask_bias(q_positions, kv_positions, spec))
+    return torch.cat([
+        _sdpa_block(q[:, i:i + qb], k, v,
+                    _mask_bias(q_positions[:, i:i + qb], kv_positions, spec))
+        for i in range(0, Sq, qb)], dim=1)
+
+
+def attn_apply(params, x, spec: AttnSpec, positions=None,
+               use_kernel: bool = False) -> torch.Tensor:
+    """Self-attention over a full sequence (prefill / loss evaluation).
+    ``use_kernel`` sends the attention itself to ``kernels.ops``'
+    ``flash_attention`` (the CUDA kernel for a CUDA tensor)."""
+    B, S, _ = x.shape
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if spec.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(B, S, spec.num_heads, spec.head_dim)
+    k = k.reshape(B, S, spec.num_kv_heads, spec.head_dim)
+    v = v.reshape(B, S, spec.num_kv_heads, spec.head_dim)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    q = rope(q, positions, spec.rope_theta)
+    k = rope(k, positions, spec.rope_theta)
+    if use_kernel:
+        # imported here: kernels.ref imports this module
+        from repro_torch.kernels import ops as kernel_ops
+        out = kernel_ops.flash_attention(q, k, v, causal=spec.causal,
+                                         window=spec.window,
+                                         prefix_len=spec.prefix_len)
+    else:
+        out = attention(q, k, v, spec, positions, positions)
+    return out.reshape(B, S, -1) @ params["wo"]
 
 
 def attn_decode_step(params, x, cache, pos, spec: AttnSpec):
@@ -177,3 +232,17 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     g = F.silu((x @ params["w_gate"]).float())
     u = (x @ params["w_up"]).float()
     return (g * u).to(x.dtype) @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, ignore_id: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy in f32 over the labels that are not
+    ``ignore_id``. logits: (B,S,V); labels: (B,S)."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long().clamp(min=0)[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)

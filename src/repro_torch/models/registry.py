@@ -1,10 +1,11 @@
-"""Model registry — uniform decode API over the port's architectures.
+"""Model registry — uniform API over the port's architectures.
 
-Mirror of ``repro/models/registry.py`` for the dense family
-(``_lm_api``): ``build(arch_id, smoke=, device=)`` returns a ``ModelAPI``
-whose members close over the arch config and the device. Only the
-serving surface is ported (``init``, ``init_cache``, ``decode_step``);
-the training ``loss_fn``/``forward`` and the other families come later.
+Mirror of ``repro/models/registry.py`` for the dense decoder
+(``_lm_api``: smollm-135m, and paligemma-3b with its prefix-LM prefix):
+``build(arch_id, smoke=, device=)`` returns a ``ModelAPI`` whose members
+close over the arch config and the device. ``forward`` and ``loss_fn``
+run the chunked plain attention, as the reference's do; the other
+families come later.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.transformer import LMConfig
 
-FAMILY = {"smollm-135m": "dense"}
+FAMILY = {"smollm-135m": "dense", "paligemma-3b": "vlm"}
 
 
 class ModelAPI(NamedTuple):
@@ -28,6 +29,8 @@ class ModelAPI(NamedTuple):
     cfg: Any
     device: torch.device
     init: Callable                # (torch.Generator) -> params on device
+    loss_fn: Callable             # (params, batch) -> (loss, metrics)
+    forward: Callable             # (params, batch) -> logits
     init_cache: Callable          # (batch, cache_len) -> cache on device
     decode_step: Callable         # (params, cache, tokens, pos) -> (logits, cache)
     param_count: int
@@ -40,10 +43,20 @@ class ModelAPI(NamedTuple):
 def _lm_api(arch_id: str, cfg: LMConfig,
             device: torch.device | str = "cuda") -> ModelAPI:
     dev = resolve_device(device)
+
+    def loss(params, batch):
+        return transformer.loss_fn(params, cfg, batch)
+
+    def fwd(params, batch):
+        logits, _ = transformer.forward(params, cfg, batch["tokens"],
+                                        batch.get("prefix_embeds"))
+        return logits
+
     return ModelAPI(
         arch_id=arch_id, family=FAMILY.get(arch_id, "dense"), cfg=cfg,
         device=dev,
         init=functools.partial(transformer.init, cfg=cfg, device=dev),
+        loss_fn=loss, forward=fwd,
         init_cache=lambda batch, cache_len: transformer.init_cache(
             cfg, batch, cache_len, dev),
         decode_step=lambda params, cache, tokens, pos: transformer.

@@ -1,10 +1,12 @@
-"""Dense decoder-only transformer LM: the serving (decode) subset of
-``repro/models/transformer.py``.
+"""Dense decoder-only transformer LM: ``repro/models/transformer.py``
+for the dense family, prefix-LM (paligemma) included.
 
 Layers are stacked with a leading L axis, as in the reference, so the
-reference's parameter tree converts leaf for leaf (``params_from_jax``).
-The training forward, prefill and the MoE / prefix-LM variants are not
-ported yet.
+reference's parameter tree converts leaf for leaf (``params_from_jax``);
+a Python loop over the layers takes the place of ``lax.scan``. Ported:
+the full-sequence ``forward`` (with ``use_kernel`` for the flash-attention
+kernel and ``return_kv``), ``loss_fn``, ``prefill`` and ``decode_step``.
+Not ported: MoE (``aux`` is 0 for the dense family) and any gradient.
 """
 
 from __future__ import annotations
@@ -117,6 +119,75 @@ def _tree_map(fn, tree):
 
 
 # ---------------------------------------------------------------------------
+# forward (prefill / loss evaluation)
+# ---------------------------------------------------------------------------
+
+def _embed_tokens(params, cfg: LMConfig, tokens, prefix_embeds):
+    x = params["embed"][tokens.long()]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    if prefix_embeds is not None:
+        P = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(x.dtype), x[:, P:]], dim=1)
+    return x
+
+
+def _unembed(params, cfg: LMConfig, x):
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    return x @ params["lm_head"]
+
+
+def forward(params, cfg: LMConfig, tokens, prefix_embeds=None,
+            use_kernel: bool = False, return_kv: bool = False):
+    """tokens: (B, S) int -> logits (B, S, V), aux [, (k, v)].
+
+    ``prefix_embeds`` (B, P, D) replaces the first P embedding rows and the
+    attn mask makes those P kv positions bidirectionally visible (prefix-LM).
+    ``return_kv`` adds the per-layer roped k and v, stacked (L, B, S, KV,
+    hd), recomputed from each layer's input (the prefill cache). ``aux`` is
+    the f32 scalar 0: the dense family has no auxiliary loss.
+    """
+    B, S = tokens.shape
+    spec = cfg.attn_spec()
+    x = _embed_tokens(params, cfg, tokens, prefix_embeds)
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    lp = params["layers"]
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        layer = _tree_map(lambda t: t[i], lp)
+        h = nn.rmsnorm(layer["ln1"], x)
+        if return_kv:
+            kproj = h @ layer["attn"]["wk"]
+            vproj = h @ layer["attn"]["wv"]
+            if cfg.qkv_bias:
+                kproj = kproj + layer["attn"]["bk"]
+                vproj = vproj + layer["attn"]["bv"]
+            ks.append(nn.rope(kproj.reshape(B, S, spec.num_kv_heads,
+                                            spec.head_dim),
+                              positions, spec.rope_theta))
+            vs.append(vproj.reshape(B, S, spec.num_kv_heads, spec.head_dim))
+        x = x + nn.attn_apply(layer["attn"], h, spec, positions, use_kernel)
+        h = nn.rmsnorm(layer["ln2"], x)
+        x = x + nn.swiglu(layer["mlp"], h)
+    x = nn.rmsnorm(params["ln_f"], x)
+    logits = _unembed(params, cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_kv:
+        return logits, aux, (torch.stack(ks), torch.stack(vs))
+    return logits, aux
+
+
+def loss_fn(params, cfg: LMConfig, batch, use_kernel: bool = False,
+            aux_weight: float = 0.01):
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          batch.get("prefix_embeds"), use_kernel)
+    ce = nn.cross_entropy(logits, batch["labels"])
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
 # decode (serving)
 # ---------------------------------------------------------------------------
 
@@ -141,10 +212,7 @@ def decode_step(params, cfg: LMConfig, cache, tokens, pos):
     to the new token).
     """
     spec = cfg.attn_spec(prefix_len=0)
-    x = params["embed"][tokens.long()][:, None, :]
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                             device=x.device)
+    x = _embed_tokens(params, cfg, tokens[:, None], None)
     lp = params["layers"]
     for i in range(cfg.num_layers):
         layer = _tree_map(lambda t: t[i], lp)
@@ -155,5 +223,29 @@ def decode_step(params, cfg: LMConfig, cache, tokens, pos):
         h = nn.rmsnorm(layer["ln2"], x)
         x = x + nn.swiglu(layer["mlp"], h)
     x = nn.rmsnorm(params["ln_f"], x)
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    return x[:, 0, :] @ head, cache
+    return _unembed(params, cfg, x[:, 0, :]), cache
+
+
+def prefill(params, cfg: LMConfig, tokens, prefix_embeds=None,
+            cache_len: int | None = None):
+    """Full-sequence forward that also builds the decode cache.
+
+    Returns (logits (B, S, V), cache) with the cache as ``init_cache``
+    lays it out on the params' device: the last min(S, W) positions
+    written into ring slots ``pos % W`` in place, the other slots left
+    empty (pos -1).
+    """
+    B, S = tokens.shape
+    W = cache_width(cfg, cache_len or S)
+    logits, _, (k_all, v_all) = forward(params, cfg, tokens, prefix_embeds,
+                                        return_kv=True)
+    dev = logits.device
+    take = min(S, W)
+    pos_tail = torch.arange(S - take, S, device=dev)[None, :].expand(B, take)
+    slots = pos_tail % W                                  # (B, take)
+    bidx = torch.arange(B, device=dev)[:, None]
+    cache = init_cache(cfg, B, W, dev)
+    cache["k"][:, bidx, slots] = k_all[:, :, S - take:]
+    cache["v"][:, bidx, slots] = v_all[:, :, S - take:]
+    cache["pos"][:, bidx, slots] = pos_tail.to(torch.int32)
+    return logits, cache

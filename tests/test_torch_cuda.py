@@ -1,6 +1,6 @@
 """On-card tests of the port (marker ``cuda``): the CUDA kernels against
-their plain versions, and the serving engine token-exact on the GPU, with
-and without tenants.
+their plain versions, the serving engine token-exact on the GPU, with
+and without tenants, and the forward through the flash-attention kernel.
 They skip where there is no CUDA device; on a machine with one, run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import duplex_stream as ds  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import vector_distance as vd  # noqa: E402
 
@@ -159,3 +160,68 @@ def test_tenant_engine_on_the_card(cuda):
     assert withdrawn["fused_calls"] == 0
     assert kv.ops_done > 0 and vec.queries_done > 0
     eng.pool.check_invariants()
+
+
+@pytest.mark.parametrize("shape,mask", [
+    ((2, 256, 4, 2, 64, torch.bfloat16), {}),
+    # prefix keys past the first q tile: the Pallas kernel drops them
+    ((1, 256, 2, 1, 64, torch.bfloat16), {"prefix_len": 160}),
+    ((1, 192, 4, 1, 256, torch.float32), {"prefix_len": 70, "window": 100}),
+])
+def test_flash_attention_matches_plain_version(cuda, shape, mask):
+    B, S, H, KV, hd, dtype = shape
+    g = torch.Generator().manual_seed(S + hd)
+    q = torch.randn((B, S, H, hd), generator=g).to(dtype).to(cuda)
+    k = torch.randn((B, S, KV, hd), generator=g).to(dtype).to(cuda)
+    v = torch.randn((B, S, KV, hd), generator=g).to(dtype).to(cuda)
+    before = fa.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, q_block=64, kv_block=64, **mask)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype
+    # the reference's tolerances; f32 products in the plain version
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got, ref.attention(q, k, v, **mask),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_wrapper_rejects_bad_inputs(cuda):
+    q = torch.randn((1, 64, 2, 64), device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                           q[..., :32].contiguous())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q.float(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                           q.transpose(1, 2))
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, q, q, window=0)
+
+
+def test_forward_through_the_kernel_on_the_card(cuda):
+    """A two-layer decoder at head_dim 64: ``use_kernel=True`` launches
+    the kernel once per layer and matches the plain forward; prefill's
+    logits equal the plain forward's."""
+    import dataclasses
+
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    api = registry.build("smollm-135m", smoke=True, device="cuda")
+    cfg = dataclasses.replace(api.cfg, d_model=192, num_heads=3,
+                              num_kv_heads=1)
+    params = T.init(torch.Generator().manual_seed(0), cfg, "cuda")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 128))).to(cuda)
+    fa.reset_launches()
+    with torch.inference_mode():
+        lk, _ = T.forward(params, cfg, tokens, use_kernel=True)
+        assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+        lp, _ = T.forward(params, cfg, tokens)
+        lg, _ = T.prefill(params, cfg, tokens, cache_len=130)
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(lk.float(), lp.float(), atol=5e-2, rtol=0)
+    torch.testing.assert_close(lg, lp, atol=0, rtol=0)
