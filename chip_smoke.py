@@ -8,8 +8,9 @@ It builds the CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each kernel against its
 plain PyTorch version on the card, and drives two serving paths at full
 width (smollm-135m: 30 layers, d_model 576, vocab 49152; random seeded
-weights), and the full-sequence forward of two models, each with the
-launch counters set to 0 just before it and read just after:
+weights), the full-sequence forward of three models and the serving of
+rwkv6-7b, each with the launch counters set to 0 just before it and
+read just after:
 
   * the main path: LLM decode through the duplex-paged KV pool, every
     request token for token against the port's static-batch
@@ -26,7 +27,15 @@ launch counters set to 0 just before it and read just after:
     as the prefix-LM prefix and 256 text tokens) under
     ``inference_mode``; ``use_kernel=True`` must launch the
     ``flash_attention`` kernel once per layer and agree with the plain
-    forward, and prefill then decode must continue the full forward.
+    forward, and prefill then decode must continue the full forward;
+  * the RWKV forward path: ``forward`` / ``loss_fn`` /
+    ``make_prefill_step`` of rwkv6-7b FULL (32 layers, d_model 4096,
+    d_ff 14336, vocab 65536, 64 heads of 64; B=2, S=4096), which must
+    launch the ``wkv6`` kernel once per layer and agree with the plain
+    forward (logits gated in f32, against a control fault);
+  * the RWKV serving path: rwkv6-7b FULL through ``ServeEngine`` with
+    paging gated off by its recurrent cache, every request token for
+    token against ``reference_decode``.
 
 The last line of its output is a JSON
 object ``{"ok": true, "device": {...}}``; the line before it is the
@@ -80,6 +89,7 @@ REPLACES = {
     "dequant_stream": "src/repro/kernels/duplex_stream.py:93",
     "l2_distance": "src/repro/kernels/vector_distance.py:50",
     "flash_attention": "src/repro/kernels/flash_attention.py:123",
+    "wkv6": "src/repro/kernels/rwkv6_scan.py:70",
 }
 
 # flash_attention against ref.attention on the card, at the reference's
@@ -116,8 +126,39 @@ DECODE_ATOL = 0.1
 # 0.39-7.4 off; the loss cannot tell them apart. Each run checks again
 # that its control fault exceeds the limit.
 LOGITS_ATOL = 0.25
+# the rwkv6-7b logits with the kernel against the plain forward, absolute,
+# with the weights in f32 (rwkv_f32_logits). On an H100 (PERF.md) the
+# kernel was 3.7e-4 off and the control 8.27; in bf16 the kernel was 1.04
+# off, and so was the plain forward against itself with its output sum
+# reordered (1.06): bf16 rounding noise, grown through 32 layers, is as
+# large as a fault there.
+RWKV_LOGITS_ATOL = 5e-3
 # profiler device time against CUDA-event stream time (measure_flash)
 FLASH_EVENT_SHARE = 0.10
+# wkv6 against ref.wkv6 on the card, at the reference's atol = rtol = 1e-4
+# (tests/test_kernels.py:107): (B, S, H, hs, draw w and u as the model
+# does). The reference's four shapes, ragged S (1000 and 77 are no
+# multiple of the kernel's 32- and 16-step chunks), hs 128, and the
+# rwkv6-7b prefill shape.
+WKV_CHECKS = [
+    (2, 256, 2, 32, False), (1, 128, 4, 64, False), (2, 64, 1, 16, False),
+    (1, 192, 3, 32, False), (2, 1000, 3, 64, False), (1, 77, 2, 128, True),
+    (2, 4096, 64, 64, True),
+]
+WKV_TOL = 1e-4
+# the RWKV forward path: rwkv6-7b FULL at (batch, sequence); 4096 is the
+# published context length of the RWKV-6 World models
+RWKV_FORWARD = (2, 4096)
+# the control fault: the plain forward with its WKV state reset every
+# RWKV_RESET tokens, which is what a kernel that dropped its carry across
+# chunks would compute
+RWKV_RESET = 128
+# the RWKV serving path: rwkv6-7b FULL through ServeEngine (paging gated
+# off by cache kind); staggered arrivals put decoding rows beside
+# chunk-prefilling ones
+RWKV_SERVE = dict(max_batch=4, cache_len=64, megastep=8, pipeline_depth=2,
+                  prefill_chunk=4)
+RWKV_REQUESTS, RWKV_PROMPT, RWKV_GEN = 8, 32, 16
 # spin kernels that open each profiler window, and how many profiles
 # device_events takes before it gives up
 PROFILE_LEAD = 32
@@ -653,6 +694,330 @@ def forward_phase(arch: str, B: int, S: int) -> dict:
     return out
 
 
+def wkv_inputs(B, S, H, hs, seed: int, model_like: bool):
+    """(r, k, v, w, u) f32 on the card from a seeded CPU generator: r, k,
+    v N(0, 1); w = sigmoid(N) * 0.5 + 0.45 and u 0.3 N(0, 1) as
+    tests/test_kernels.py draws them, or w = exp(-exp(-6 + N(0, 1))) and
+    u 0.5 N(0, 1) as the model's decay bias and init give them."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v, n = (torch.randn((B, S, H, hs), generator=g) for _ in range(4))
+    if model_like:
+        w = torch.exp(-torch.exp(-6.0 + n))
+        u = 0.5 * torch.randn((H, hs), generator=g)
+    else:
+        w = torch.sigmoid(n) * 0.5 + 0.45
+        u = 0.3 * torch.randn((H, hs), generator=g)
+    return tuple(x.cuda() for x in (r, k, v, w, u))
+
+
+def compare_wkv(got, want, where) -> float:
+    """The reference's tolerance, atol = rtol = 1e-4. Returns the largest
+    absolute difference."""
+    if got.shape != want.shape or got.dtype != torch.float32 \
+            or not torch.allclose(got, want, atol=WKV_TOL, rtol=WKV_TOL):
+        fail(f"wkv6 differs from the plain version at {where}: max abs "
+             f"{(got - want).abs().max().item()}")
+    return (got - want).abs().max().item()
+
+
+def check_wkv6() -> None:
+    """The wkv6 kernel against ref.wkv6 at every shape of WKV_CHECKS (f32
+    products in the plain version: TF32 off), and the reference's
+    divisibility contract on the card."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_scan as rs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for i, (B, S, H, hs, model_like) in enumerate(WKV_CHECKS):
+        x = wkv_inputs(B, S, H, hs, seed=300 + i, model_like=model_like)
+        where = f"B,S,H,hs = {B},{S},{H},{hs}" + (
+            " (the model's w and u)" if model_like else "")
+        err = compare_wkv(rs.wkv6(*x), ref.wkv6(*x)[0], where)
+        torch.cuda.synchronize()
+        print(f"wkv6 matches the plain version at {where} (max abs err "
+              f"{err:.3g})", flush=True)
+    x = wkv_inputs(1, 100, 2, 64, seed=0, model_like=False)
+    try:
+        ops.wkv6(*x, chunk=64)
+    except ValueError as e:
+        print(f"wkv6 refuses S=100 with chunk 64 on the card: {e}",
+              flush=True)
+    else:
+        fail("wkv6 accepted S=100 with chunk 64")
+
+
+def measure_wkv6(shape) -> dict:
+    """Time the wkv6 kernel and its plain version at (B, S, H, hs) with
+    the model's w and u, by the profiler's device time, with the bound of
+    this work: r, k, v, w and out once (and u) against 3.35 TB/s, and
+    7 hs^2 f32 operations per (b, t, h) (k*v, u*kv, +S, the output FMA's
+    two, w*S, +kv) against 67 TFLOP/s on CUDA cores. The kernel must be
+    the one device operation of its call, reach no less than its bound,
+    and agree with CUDA events over back-to-back calls within
+    FLASH_EVENT_SHARE. No single PyTorch call computes the WKV6
+    recurrence, so there is no library time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rs
+    B, S, H, hs = shape
+    x = wkv_inputs(B, S, H, hs, seed=99, model_like=True)
+    fn = lambda: rs.wkv6(*x)
+    plain = lambda: ref.wkv6(*x)[0]
+    err = compare_wkv(fn(), plain(), shape)
+    n = B * S * H
+    flops = 7 * hs * hs * n
+    nbytes = 4 * (5 * n * hs + H * hs)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    ms, per_call = device_profile(fn, iters=10, per_call={"wkv6_kernel": 1})
+    plain_ms = device_profile(plain, iters=2)[0]
+    ev = cuda_ms(fn, iters=10)
+    print(f"wkv6 at {shape}: device ms (profiler) {ms:.4f}, stream ms "
+          f"(CUDA events) {ev:.4f}, plain {plain_ms:.4f}, bound "
+          f"{bound:.4f}", flush=True)
+    if per_call != 1:
+        fail(f"wkv6 at {shape}: {per_call} device operations per call, "
+             f"want 1")
+    if ms < bound or abs(ms - ev) > FLASH_EVENT_SHARE * ev:
+        fail(f"wkv6 at {shape}: {ms} ms by the profiler is below its bound "
+             f"{bound} ms or more than {FLASH_EVENT_SHARE:.0%} off its "
+             f"stream time {ev} ms")
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+            "replaces": REPLACES["wkv6"], "shape": list(shape),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flop": flops, "bytes": nbytes, "library_ms": None}
+
+
+def rwkv_forward_phase(B: int, S: int):
+    """The RWKV forward path: rwkv6-7b FULL (random weights drawn on the
+    card from a seed) under ``inference_mode``. The registry's ``forward``
+    must launch wkv6 once per layer, and the profiler must see those
+    launches; layer 0's recurrence, on the inputs the forward handed the
+    kernel, within WKV_TOL of the plain version; ``loss_fn`` within
+    LOSS_RTOL of the plain forward's (``use_kernel=False``, which
+    launches nothing) loss; ``make_prefill_step``'s argmax equal to the
+    forward's; the bf16 logit gap to the plain forward recorded; and the
+    whole-model logit check in f32 (``rwkv_f32_logits``). Returns (api,
+    params, the phase's numbers)."""
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import layers as nn
+    from repro_torch.models import registry
+    from repro_torch.models import rwkv6 as W
+
+    api = registry.build("rwkv6-7b", smoke=False, device="cuda")
+    cfg = api.cfg
+    if (cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab,
+            cfg.head_size) != (32, 4096, 14336, 65536, 64):
+        fail(f"not the full-width config: {cfg}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = []
+    nn.tree_map(lambda t: sizes.append(t.numel() * t.element_size()), params)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (B, S + 1))).cuda()
+    batch = {"tokens": toks[:, :S], "labels": toks[:, 1:].clone()}
+    L = cfg.num_layers
+    with torch.inference_mode():
+        # warm-up, keeping the inputs the forward hands the first layer's
+        # recurrence
+        seen = []
+        real_wkv6 = kernel_ops.wkv6
+
+        def rec(*a, **kw):
+            if not seen:
+                seen.append(a)
+            return real_wkv6(*a, **kw)
+
+        kernel_ops.wkv6 = rec
+        try:
+            api.forward(params, batch)
+        finally:
+            kernel_ops.wkv6 = real_wkv6
+        torch.cuda.synchronize()
+        rs.reset_launches()
+        t0 = time.perf_counter()
+        lk = api.forward(params, batch)
+        torch.cuda.synchronize()
+        wall_kernel = time.perf_counter() - t0
+        launches = rs.LAUNCHES["wkv6"]
+        rs.reset_launches()
+        t0 = time.perf_counter()
+        lp, _ = W.forward(params, cfg, batch["tokens"], use_kernel=False)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+        if launches != L or rs.LAUNCHES["wkv6"]:
+            fail(f"rwkv6-7b: forward launched wkv6 {launches} times (want "
+                 f"{L}) and {rs.LAUNCHES['wkv6']} without the kernel "
+                 f"(want 0)")
+        if lk.shape != (B, S, cfg.vocab) or not torch.isfinite(lk).all():
+            fail(f"rwkv6-7b: forward logits {tuple(lk.shape)} not finite")
+        # where one forward's device time goes: the kernel against the rest
+        rows = device_events(lambda: api.forward(params, batch), iters=1,
+                             warmup=0, per_call={"wkv6_kernel": L})
+        device_ms = sum(us for _, _, us in rows) / 1e3
+        wkv_ms = sum(us for n, _, us in rows if "wkv6_kernel" in n) / 1e3
+
+        r, k, v, w, u = (t.float().contiguous() for t in seen[0])
+        layer0_err = compare_wkv(rs.wkv6(r, k, v, w, u),
+                                 ref.wkv6(r, k, v, w, u)[0],
+                                 "layer 0 of the rwkv6-7b forward")
+        del seen, r, k, v, w, u
+
+        # bf16: recorded, not gated (one-ulp differences grow through the
+        # 32 layers; the gate below is in f32)
+        d = (lk.float() - lp.float()).abs()
+        d_max, d_mean = d.max().item(), d.mean().item()
+        del d
+        agree = (lk.float().argmax(-1) == lp.float().argmax(-1)).float() \
+            .mean().item()
+        loss_k, _ = api.loss_fn(params, batch)
+        loss_p = nn.cross_entropy(lp, batch["labels"])
+        rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        if not rel <= LOSS_RTOL:
+            fail(f"rwkv6-7b: loss {loss_k.item()} with the kernel, "
+                 f"{loss_p.item()} without: relative {rel} > {LOSS_RTOL}")
+        nxt, _ = make_prefill_step(api)(params, batch)
+        if not torch.equal(nxt, lk[:, -1].float().argmax(-1)):
+            fail("rwkv6-7b: make_prefill_step's argmax differs from the "
+                 "forward's last position")
+        del lk, lp
+        torch.cuda.empty_cache()
+        f32 = rwkv_f32_logits(params, cfg, batch["tokens"])
+    out = {"arch": "rwkv6-7b", "batch": B, "seq": S, "layers": L,
+           "param_bytes": sum(sizes), "init_s": init_s, "launches": launches,
+           "forward_kernel_ms": wall_kernel * 1e3,
+           "forward_plain_ms": wall_plain * 1e3,
+           "forward_device_ms": device_ms, "wkv6_kernel_ms": wkv_ms,
+           "wkv6_share_of_device_ms": wkv_ms / device_ms,
+           "device_ops": sum(n for _, n, _ in rows),
+           "tokens_per_s_kernel": B * S / wall_kernel,
+           "tokens_per_s_plain": B * S / wall_plain,
+           "layer0_wkv_max_abs_err": layer0_err,
+           "bf16_logits_max_abs_diff": d_max,
+           "bf16_logits_mean_abs_diff": d_mean, "bf16_argmax_agree": agree,
+           **f32,
+           "loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+           "loss_rel_diff": rel}
+    print(json.dumps({"rwkv_forward_phase": out}), flush=True)
+    return api, params, out
+
+
+def rwkv_f32_logits(params, cfg, tokens) -> dict:
+    """The whole-model logit check of the RWKV forward path, in f32: the
+    same weights cast to f32 (the kernel takes f32 r, k, v, w in either
+    dtype, at the same shape), the forward with the kernel against the
+    plain forward within RWKV_LOGITS_ATOL, and the control (the plain
+    forward with its state reset every RWKV_RESET tokens) beyond it. In
+    bf16, one-ulp differences grow through the 32 random-weight layers to
+    logit gaps as large as a real fault's (PERF.md); f32 rounding starts
+    ~1e-7. TF32 is off, so the f32 matmuls are f32."""
+    from repro_torch.models import layers as nn
+    from repro_torch.models import rwkv6 as W
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = nn.tree_map(lambda t: t.float(), params)
+    lk, _ = W.forward(p32, cfg32, tokens)
+    lp, _ = W.forward(p32, cfg32, tokens, use_kernel=False)
+    d = (lk - lp).abs()
+    d_max, d_mean = d.max().item(), d.mean().item()
+    del d, lk
+    real_scan = W.wkv_scan
+
+    def reset_scan(r, k, v, w, u, state=None):
+        n = RWKV_RESET
+        return torch.cat([real_scan(r[:, i:i + n], k[:, i:i + n],
+                                    v[:, i:i + n], w[:, i:i + n], u)[0]
+                          for i in range(0, r.shape[1], n)], dim=1), None
+
+    W.wkv_scan = reset_scan
+    try:
+        lc, _ = W.forward(p32, cfg32, tokens, use_kernel=False)
+    finally:
+        W.wkv_scan = real_scan
+    control = (lc - lp).abs().max().item()
+    del lc, lp, p32
+    torch.cuda.empty_cache()
+    if not d_max <= RWKV_LOGITS_ATOL:
+        fail(f"rwkv6-7b: f32 logits with the kernel differ from the plain "
+             f"forward's by {d_max} (limit {RWKV_LOGITS_ATOL})")
+    if not control > RWKV_LOGITS_ATOL:
+        fail(f"rwkv6-7b: the control (state reset every {RWKV_RESET} "
+             f"tokens) moved the f32 logits by {control}, within the limit "
+             f"{RWKV_LOGITS_ATOL}: the logit check cannot see it")
+    return {"f32_logits_max_abs_diff": d_max,
+            "f32_logits_mean_abs_diff": d_mean,
+            "control_fault": f"state reset every {RWKV_RESET} tokens",
+            "f32_control_logits_max_abs_diff": control}
+
+
+def rwkv_serve_phase(api, params) -> dict:
+    """The RWKV serving path: rwkv6-7b FULL through ``ServeEngine`` with
+    paging gated off by the recurrent cache kind, every request token for
+    token against ``reference_decode`` in batches of the engine's
+    max_batch. Decode runs the one-step recurrence, not the kernel: its
+    wkv6 launches must be 0. Also profiles one ``decode_step`` at the
+    engine's batch (device ms and operations)."""
+    from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    prompts = np.random.default_rng(6).integers(
+        0, api.cfg.vocab, (RWKV_REQUESTS, RWKV_PROMPT)).astype(np.int32)
+    engine_cfg = EngineConfig(**RWKV_SERVE, max_queue=RWKV_REQUESTS + 8,
+                              device="cuda")
+    warm = ServeEngine(api, params, engine_cfg)
+    for i in range(RWKV_SERVE["max_batch"]):
+        warm.submit(prompts[i, :8], 4)
+    warm.run()
+    eng = ServeEngine(api, params, engine_cfg)
+    if eng.paged or eng.pool is not None:
+        fail("rwkv6-7b: the engine paged a recurrent cache")
+    rids = [eng.submit(prompts[i], RWKV_GEN,
+                       arrival_step=i * ARRIVAL_EVERY).rid
+            for i in range(RWKV_REQUESTS)]
+    torch.cuda.synchronize()
+    rs.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rs.LAUNCHES["wkv6"]
+    check_decode(api, params, prompts, outs, rids, RWKV_GEN,
+                 RWKV_SERVE["max_batch"], RWKV_SERVE["cache_len"])
+    ps = eng.paging_stats()
+    if ps["paged"] is not False:
+        fail(f"rwkv6-7b: paging_stats says paged={ps['paged']}")
+    if launches:
+        fail(f"rwkv6-7b: decode launched wkv6 {launches} times (want 0)")
+    tokens = sum(len(outs[r]) for r in rids)
+    # one decode_step at the engine's batch: device ms and operations
+    B = RWKV_SERVE["max_batch"]
+    cache = api.init_cache(B, RWKV_SERVE["cache_len"])
+    toks = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    dec_ms, dec_ops = device_profile(
+        lambda: api.decode_step(params, cache, toks, None), iters=5)
+    out = {"arch": "rwkv6-7b", "requests": RWKV_REQUESTS,
+           "prompt": RWKV_PROMPT, "gen": RWKV_GEN, "tokens": tokens,
+           "paged": ps["paged"], "wall_ms": wall * 1e3,
+           "tokens_per_s": tokens / wall, "wkv6_launches": launches,
+           "steps": ps["steps"], "host_dispatches": ps["host_dispatches"],
+           "megasteps": ps["megasteps"], "host_blocked": ps["host_blocked"],
+           "decoder_ops_per_step": dec_ops, "decoder_ms_per_step": dec_ms}
+    print(f"served {RWKV_REQUESTS} requests of rwkv6-7b (full width) on "
+          f"the card: {tokens} tokens in {wall:.3f} s "
+          f"({tokens / wall:.1f} tok/s), all token-exact vs "
+          f"reference_decode, paged={ps['paged']}", flush=True)
+    print(json.dumps({"rwkv_serve_phase": out}), flush=True)
+    return out
+
+
 def full_model():
     """smollm-135m FULL on the card with the port's seeded init."""
     from repro_torch.models import registry
@@ -969,8 +1334,9 @@ def build_all() -> None:
 
     from repro_torch.kernels import duplex_stream as ds
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import vector_distance as vd
-    mods = (ds, vd, fa)
+    mods = (ds, vd, fa, rs)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:
         logs = list(pool.map(lambda m: m.build(), mods))
@@ -1007,6 +1373,8 @@ def main() -> int:
     flash_row = measure_flash((4, 2048, 9, 3, 64), {})
     print(json.dumps({"flash_attention_paligemma": measure_flash(
         (2, 512, 8, 1, 256), {"prefix_len": 256})}), flush=True)
+    check_wkv6()
+    wkv_row = measure_wkv6(WKV_CHECKS[-1][:4])
 
     api, params = full_model()
     shapes_seen: dict = {}
@@ -1015,6 +1383,10 @@ def main() -> int:
     tenant_launches = serve_tenants(api, params, l2_shapes)
     forward = {arch: forward_phase(arch, B, S)
                for arch, B, S in FORWARD_RUNS}
+    torch.cuda.empty_cache()
+    rwkv_api, rwkv_params, rwkv_forward = rwkv_forward_phase(*RWKV_FORWARD)
+    rwkv_serve = rwkv_serve_phase(rwkv_api, rwkv_params)
+    del rwkv_api, rwkv_params
     torch.cuda.empty_cache()
 
     kernels = []
@@ -1030,6 +1402,11 @@ def main() -> int:
     flash_row["launches"] = forward["smollm-135m"]["launches"]
     flash_row["launches_paligemma"] = forward["paligemma-3b"]["launches"]
     kernels.append(flash_row)
+    # measured at the rwkv6-7b prefill shape; launched per forward, never
+    # in decode
+    wkv_row["launches"] = rwkv_forward["launches"]
+    wkv_row["launches_serving"] = rwkv_serve["wkv6_launches"]
+    kernels.append(wkv_row)
     # last: after a trace of a million operations, the profiler has been
     # seen to record nothing of a later short profile of a kernel
     profile_serving_run()

@@ -1,8 +1,8 @@
 """Architecture configs of the port (one module per arch) + lookup helpers.
 
-Mirror of ``repro/configs/__init__.py``; the dense decoders the port runs
-so far: smollm-135m (serving, prefill, loss) and paligemma-3b (prefill,
-loss).
+Mirror of ``repro/configs/__init__.py``; the archs the port runs so far:
+the dense decoders smollm-135m (serving, prefill, loss) and paligemma-3b
+(prefill, loss), and rwkv6-7b (serving, prefill, loss).
 """
 
 import importlib
@@ -11,6 +11,7 @@ import importlib
 _MODULES = {
     "smollm-135m": "smollm_135m",
     "paligemma-3b": "paligemma_3b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -3,8 +3,9 @@
 Mirror of ``repro/kernels/ops.py``. Each dispatches on the device of the
 tensors it is given: a CPU tensor goes to the plain version in
 ``kernels/ref.py``; any other tensor goes to the CUDA kernel in
-``kernels/duplex_stream.py``, ``kernels/vector_distance.py`` or
-``kernels/flash_attention.py``, which launches or raises. There is no
+``kernels/duplex_stream.py``, ``kernels/vector_distance.py``,
+``kernels/flash_attention.py`` or ``kernels/rwkv6_scan.py``, which
+launches or raises. There is no
 fallback from the kernel to the plain version.
 """
 
@@ -15,6 +16,7 @@ import torch
 from repro_torch.kernels import duplex_stream as _ds
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_scan as _rs
 from repro_torch.kernels import vector_distance as _vd
 
 
@@ -82,3 +84,20 @@ def flash_attention(q, k, v, *, causal: bool = True,
                              prefix_len=prefix_len)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                prefix_len=prefix_len)
+
+
+def wkv6(r, k, v, w, u, *, chunk: int = 128):
+    """The WKV6 recurrence from a zero state. r, k, v, w: (B, S, H, hs)
+    (w in (0, 1)); u: (H, hs) -> out (B, S, H, hs) f32. ``chunk`` is the
+    reference's divisibility contract (``S % min(chunk, S) == 0``),
+    checked on every device; the CUDA kernel has no such limit and walks
+    time in its own chunks. Inputs are taken in f32, as the reference's
+    kernel upcasts them."""
+    S = r.shape[1]
+    ch = min(chunk, S)
+    if S % ch:
+        raise ValueError(f"S={S} must be divisible by chunk={ch}")
+    r, k, v, w, u = (t.float().contiguous() for t in (r, k, v, w, u))
+    if _on_cpu(r):
+        return ref.wkv6(r, k, v, w, u)[0]
+    return _rs.wkv6(r, k, v, w, u)

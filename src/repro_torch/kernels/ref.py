@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels.
 
-Mirror of ``repro/kernels/ref.py:13-60`` (all but ``wkv6``). The CPU
+Mirror of ``repro/kernels/ref.py``. The CPU
 path of ``kernels.ops`` runs these, the CPU tests hold them against the
 JAX package, and ``chip_smoke.py`` holds the CUDA kernels against them on
 the card. Nothing on the serving or forward path calls them for a CUDA
@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as nn
+from repro_torch.models.rwkv6 import wkv_scan
 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -22,6 +23,13 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
                        head_dim=q.shape[3], causal=causal, window=window,
                        prefix_len=prefix_len, q_block=q.shape[1])
     return nn.attention(q, k, v, spec)
+
+
+def wkv6(r, k, v, w, u, state=None):
+    """Plain WKV6 recurrence, a loop over time in f32 (delegates to the
+    model's scan, as the reference does). r, k, v, w (B, S, H, hs), u
+    (H, hs); returns (out (B, S, H, hs), final state (B, H, hs, hs))."""
+    return wkv_scan(r, k, v, w, u, state)
 
 
 def quantize_int8(x: torch.Tensor):

@@ -1,0 +1,116 @@
+"""Hopper CUDA kernel for the WKV6 recurrence, and its wrapper.
+
+Port of ``repro/kernels/rwkv6_scan.py`` (``wkv6``, the ``pl.pallas_call``
+at :70, kernel body ``_wkv_kernel`` at :26): the time-mix recurrence of
+every RWKV6 layer on the full-sequence forward (prefill, loss
+evaluation), which ``models/rwkv6.forward`` runs through
+``kernels.ops.wkv6`` once per layer. The kernel is CUDA C++ for
+``sm_90a`` in ``csrc/rwkv6_scan.cu``, built at first use and loaded with
+``ctypes`` by ``kernels/_build.py``. Nothing is compiled or loaded when
+this module is imported.
+
+What bounds it on an H100, and what the design does about it: the bytes
+(r, k, v, w read once, out written once: 0.20 ms at the rwkv6-7b prefill
+shape) and the f32 operations (7*hs^2 per (b, t, h): 0.22 ms) are both
+small; the sequential loop over time is what sets the pace. The TPU
+kernel's (B*H, S/chunk) grid with a VMEM carry does not carry over: blocks
+run in parallel on Hopper and nothing passes between them. Instead one
+thread block per (b, h) keeps the whole (hs x hs) f32 state in registers
+and loops over time, four lanes to a state column (columns evolve
+independently), so the path shape's 128 (b, h) pairs give each SM eight
+warps; a chunk of r, k, w and v is staged in shared memory while the
+next one loads. The state update rounds exactly as the plain version
+does, so it is bit-equal to it; only the output sum's order differs.
+
+The wrapper takes CUDA tensors only: it checks device, dtype, rank,
+shapes, contiguity, 16-byte alignment and ``hs`` in {16, 32, 64, 128}
+and raises on anything else, allocates the output with ``torch.empty``,
+launches on the current stream, raises if the launch was refused, and
+adds one to ``LAUNCHES["wkv6"]``. The plain version is
+``kernels/ref.py::wkv6``; ``kernels/ops.py`` picks between the two by the
+tensor's device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import check_tensor as _check
+
+SOURCE = _build.CSRC / "rwkv6_scan.cu"
+
+#: head sizes the kernel is instantiated for
+HEAD_SIZES = (16, 32, 64, 128)
+
+#: launches, counted where the kernel is launched and nowhere else
+LAUNCHES = {"wkv6": 0}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    LAUNCHES["wkv6"] = 0
+
+
+def library_path():
+    return _build.library_path(SOURCE)
+
+
+def build() -> str:
+    """Compile this module's kernel unless built; returns nvcc's log."""
+    return _build.build(SOURCE)
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load(SOURCE)
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.wkv6_launch.argtypes = [vp] * 6 + [i32] * 4 + [vp]
+        lib.wkv6_launch.restype = i32
+        lib.rwkv6_scan_error_string.argtypes = [i32]
+        lib.rwkv6_scan_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """r, k, v, w (B, S, H, hs) f32 (w in (0, 1)), u (H, hs) f32, all
+    contiguous -> out (B, S, H, hs) f32, the WKV6 recurrence from a zero
+    state."""
+    if r.dim() != 4 or u.dim() != 2:
+        raise ValueError(f"want r, k, v, w (B, S, H, hs) and u (H, hs), got "
+                         f"{tuple(r.shape)} and {tuple(u.shape)}")
+    B, S, H, hs = r.shape
+    dev = r.device
+    _check(r, "r", torch.float32, (B, S, H, hs))
+    for name, t in (("k", k), ("v", v), ("w", w)):
+        _check(t, name, torch.float32, (B, S, H, hs), dev)
+    _check(u, "u", torch.float32, (H, hs), dev)
+    if hs not in HEAD_SIZES:
+        raise ValueError(f"head size {hs} is not one the kernel is built for "
+                         f"{HEAD_SIZES}")
+    if B * H >= 2 ** 31 or S >= 2 ** 31:
+        raise ValueError(f"unsupported shape {(B, S, H, hs)}")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w)):
+        raise ValueError("r, k, v and w must start on a 16-byte boundary (the "
+                         "kernel reads 16 bytes at a time)")
+    lib = _load()
+    with torch.cuda.device(dev):
+        out = torch.empty_like(r)
+        if r.numel() == 0:
+            return out
+        rc = lib.wkv6_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), out.data_ptr(), B, S, H, hs,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc != 0:
+            raise RuntimeError(
+                "wkv6 kernel launch failed: "
+                f"{lib.rwkv6_scan_error_string(rc).decode()}")
+        LAUNCHES["wkv6"] += 1
+    return out

@@ -1,1 +1,1 @@
-"""Model zoo of the port (dense decoder so far)."""
+"""Model zoo of the port (dense decoder and RWKV6 so far)."""

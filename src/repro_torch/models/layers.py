@@ -1,6 +1,6 @@
-"""Dense-decoder layers of the port (the dense-family subset of
-``repro/models/layers.py``: norms, RoPE, attention for the full sequence
-and for one decode token, SwiGLU, cross-entropy).
+"""Layers of the port (the subset of ``repro/models/layers.py`` that the
+dense decoder and RWKV6 use: norms, RoPE, attention for the full
+sequence and for one decode token, SwiGLU, cross-entropy).
 
 Conventions follow the reference: params are nested dicts of tensors,
 layer stacks carry a leading L axis, activations and params default to
@@ -49,6 +49,19 @@ def rmsnorm_init(lead: tuple, dim: int, dtype=DEFAULT_DTYPE) -> dict:
     return {"scale": torch.ones((*lead, dim), dtype=dtype)}
 
 
+def layernorm_init(lead: tuple, dim: int, dtype=DEFAULT_DTYPE,
+                   device="cpu") -> dict:
+    return {"scale": torch.ones((*lead, dim), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, dim), dtype=dtype, device=device)}
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a nested dict of tensors (params, caches)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -58,6 +71,17 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with f32 statistics and the population variance
+    (``jnp.var``'s ddof 0; ``torch.var`` defaults to the unbiased one)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

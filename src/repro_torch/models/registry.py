@@ -1,10 +1,12 @@
 """Model registry — uniform API over the port's architectures.
 
 Mirror of ``repro/models/registry.py`` for the dense decoder
-(``_lm_api``: smollm-135m, and paligemma-3b with its prefix-LM prefix):
-``build(arch_id, smoke=, device=)`` returns a ``ModelAPI`` whose members
-close over the arch config and the device. ``forward`` and ``loss_fn``
-run the chunked plain attention, as the reference's do; the other
+(``_lm_api``: smollm-135m, and paligemma-3b with its prefix-LM prefix)
+and RWKV6 (``_rwkv_api``: rwkv6-7b): ``build(arch_id, smoke=, device=)``
+returns a ``ModelAPI`` whose members close over the arch config and the
+device. The dense ``forward`` and ``loss_fn`` run the chunked plain
+attention, as the reference's do; RWKV6's run the WKV recurrence through
+``kernels.ops.wkv6`` (the CUDA kernel for a CUDA tensor). The other
 families come later.
 """
 
@@ -17,10 +19,11 @@ import torch
 
 from repro_torch import configs as configs_lib
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
+from repro_torch.models.rwkv6 import RWKVConfig
 from repro_torch.models.transformer import LMConfig
 
-FAMILY = {"smollm-135m": "dense", "paligemma-3b": "vlm"}
+FAMILY = {"smollm-135m": "dense", "paligemma-3b": "vlm", "rwkv6-7b": "ssm"}
 
 
 class ModelAPI(NamedTuple):
@@ -36,7 +39,11 @@ class ModelAPI(NamedTuple):
     param_count: int
     active_param_count: int
     # "ring": every cache leaf is token-indexed (a K/V ring overwrites a
-    # stale entry before it is read).
+    # stale entry before it is read), and ``decode_step`` writes the cache
+    # in place; "recurrent": the cache carries state that any decode_step
+    # advances irreversibly (RWKV wkv state and shift tokens), and
+    # ``decode_step`` returns new leaves without writing its input, so the
+    # engine can keep the rows that did not move.
     cache_kind: str = "ring"
 
 
@@ -66,6 +73,25 @@ def _lm_api(arch_id: str, cfg: LMConfig,
     )
 
 
+def _rwkv_api(arch_id: str, cfg: RWKVConfig,
+              device: torch.device | str = "cuda") -> ModelAPI:
+    dev = resolve_device(device)
+    return ModelAPI(
+        arch_id=arch_id, family="ssm", cfg=cfg, device=dev,
+        init=functools.partial(rwkv6.init, cfg=cfg, device=dev),
+        loss_fn=lambda params, batch: rwkv6.loss_fn(params, cfg, batch),
+        forward=lambda params, batch: rwkv6.forward(
+            params, cfg, batch["tokens"])[0],
+        init_cache=lambda batch, cache_len: rwkv6.init_cache(
+            cfg, batch, cache_len, dev),
+        decode_step=lambda params, cache, tokens, pos: rwkv6.decode_step(
+            params, cfg, cache, tokens, pos),
+        param_count=cfg.param_count(),
+        active_param_count=cfg.active_param_count(),
+        cache_kind="recurrent",
+    )
+
+
 def build(arch_id: str, smoke: bool = False,
           device: torch.device | str = "cuda") -> ModelAPI:
     """The arch's ``ModelAPI`` on ``device`` (``cuda`` unless the caller
@@ -73,4 +99,6 @@ def build(arch_id: str, smoke: bool = False,
     cfg = configs_lib.get_config(arch_id, smoke=smoke)
     if isinstance(cfg, LMConfig):
         return _lm_api(arch_id, cfg, device)
+    if isinstance(cfg, RWKVConfig):
+        return _rwkv_api(arch_id, cfg, device)
     raise TypeError(f"unknown config type {type(cfg)} for {arch_id}")

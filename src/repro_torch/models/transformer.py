@@ -99,7 +99,7 @@ def init(generator: torch.Generator, cfg: LMConfig,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = nn.dense_init(g, (), D, cfg.vocab, dt)
-    return _tree_map(lambda t: t.to(device), params)
+    return nn.tree_map(lambda t: t.to(device), params)
 
 
 def params_from_jax(np_tree: dict, cfg: LMConfig,
@@ -107,15 +107,9 @@ def params_from_jax(np_tree: dict, cfg: LMConfig,
     """The reference's parameter tree (nested dicts of numpy float32
     arrays; bf16 passes through float32 exactly) as the port's params in
     ``cfg.dtype`` on ``device``. The two trees have the same layout."""
-    return _tree_map(
+    return nn.tree_map(
         lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
             dtype=cfg.dtype, device=device), np_tree)
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +150,7 @@ def forward(params, cfg: LMConfig, tokens, prefix_embeds=None,
     lp = params["layers"]
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        layer = _tree_map(lambda t: t[i], lp)
+        layer = nn.tree_map(lambda t: t[i], lp)
         h = nn.rmsnorm(layer["ln1"], x)
         if return_kv:
             kproj = h @ layer["attn"]["wk"]
@@ -215,7 +209,7 @@ def decode_step(params, cfg: LMConfig, cache, tokens, pos):
     x = _embed_tokens(params, cfg, tokens[:, None], None)
     lp = params["layers"]
     for i in range(cfg.num_layers):
-        layer = _tree_map(lambda t: t[i], lp)
+        layer = nn.tree_map(lambda t: t[i], lp)
         lcache = {k: v[i] for k, v in cache.items()}
         h = nn.rmsnorm(layer["ln1"], x)
         y, _ = nn.attn_decode_step(layer["attn"], h, lcache, pos, spec)

@@ -34,9 +34,12 @@ any row: the reference skips a micro-step with no movers with a
 never asks the device.
 
 Where the reference jits and donates, the port runs eagerly and updates
-in place: the dense cache is written by ``decode_step`` in place, slot
+in place: the dense cache is written by ``decode_step`` in place, a
+recurrent cache (RWKV6) gets the moving rows of ``decode_step``'s new
+leaves written into it in place (the reference's frozen-row keep), slot
 recycling rewrites cache rows in place, and the pool commits into its
-tier tensors in place.
+tier tensors in place. A recurrent cache has no token-indexed K/V, so
+paging is gated off for it, as in the reference.
 
 ``pipeline_depth = 2`` splits each megastep into plan / dispatch /
 reconcile and keeps one dispatched megastep's readback deferred while the
@@ -229,7 +232,8 @@ def _megastep_math(api: ModelAPI, n_micro: int, n_steps: int,
     """The megastep: ``n_steps`` consecutive engine steps as one function
     ``mega(params, cache, dev, micro) -> (dev, packed[, staged])``.
 
-    ``cache`` is updated in place. ``micro[t]`` is the number of leading
+    ``cache`` is updated in place (a recurrent cache only in the rows that
+    move). ``micro[t]`` is the number of leading
     micro-steps of inner step t that advance any row (from the host's
     trajectories); the remaining micro-steps of the step have no movers
     and change nothing, so they are not run. ``packed`` is the (B, 3+K)
@@ -241,8 +245,7 @@ def _megastep_math(api: ModelAPI, n_micro: int, n_steps: int,
     pre-step write positions, ``max_fills`` candidate blocks per slot —
     as (B*max_fills, block_tokens, kv_dims) bf16 (padding rows are
     dropped by the pool's sentinel ids)."""
-    if api.cache_kind != "ring":
-        raise ValueError(f"{api.arch_id}: only ring caches are ported")
+    ring = api.cache_kind == "ring"
     n_micro = max(1, n_micro)
     extract = block_tokens is not None
     max_fills = -(-n_micro // block_tokens) if extract else 0
@@ -264,8 +267,19 @@ def _megastep_math(api: ModelAPI, n_micro: int, n_steps: int,
             toks = torch.where(movers, dev["tok"], 0)
             # non-movers see a dummy token; for a ring cache its K/V lands
             # at the row's next write position and is overwritten by the
-            # row's next real token before any real query attends it.
-            logits, _ = api.decode_step(params, cache, toks, written)
+            # row's next real token before any real query attends it, so
+            # the ring step's in-place writes stand and its returned cache
+            # is dropped.
+            logits, new_cache = api.decode_step(params, cache, toks,
+                                                written)
+            if not ring:
+                # a recurrent state (RWKV wkv state and shift tokens) is
+                # advanced irreversibly by any token it sees, the dummy
+                # too: every non-mover row keeps its pre-step leaves, and
+                # the movers' new rows are written into the cache in place.
+                for key, leaf in cache.items():
+                    keep = movers.reshape((1, -1) + (1,) * (leaf.dim() - 2))
+                    leaf.copy_(torch.where(keep, new_cache[key], leaf))
             picked = torch.argmax(logits, dim=-1).to(torch.int32)
 
             pref_mover = movers & prefilling

@@ -1,6 +1,7 @@
 """On-card tests of the port (marker ``cuda``): the CUDA kernels against
 their plain versions, the serving engine token-exact on the GPU, with
-and without tenants, and the forward through the flash-attention kernel.
+and without tenants, the forward through the flash-attention kernel, and
+the RWKV6 forward through the wkv6 kernel.
 They skip where there is no CUDA device; on a machine with one, run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -225,3 +226,48 @@ def test_forward_through_the_kernel_on_the_card(cuda):
     assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
     torch.testing.assert_close(lk.float(), lp.float(), atol=5e-2, rtol=0)
     torch.testing.assert_close(lg, lp, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 200, 3, 64), (1, 77, 2, 16)])
+def test_wkv6_matches_plain_version(cuda, shape):
+    """The kernel against ``ref.wkv6`` at the reference's tolerance, with
+    a ragged S (no multiple of the kernel's 32-step chunk)."""
+    from repro_torch.kernels import rwkv6_scan as rs
+    g = torch.Generator().manual_seed(sum(shape))
+    B, S, H, hs = shape
+    r, k, v, n = (torch.randn(shape, generator=g) for _ in range(4))
+    w = torch.exp(-torch.exp(-6.0 + n))
+    u = 0.5 * torch.randn((H, hs), generator=g)
+    r, k, v, w, u = (x.to(cuda) for x in (r, k, v, w, u))
+    before = rs.LAUNCHES["wkv6"]
+    got = ops.wkv6(r, k, v, w, u, chunk=S)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["wkv6"] == before + 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.testing.assert_close(got, ref.wkv6(r, k, v, w, u)[0], atol=1e-4,
+                               rtol=1e-4)
+    with pytest.raises(ValueError, match="divisible"):
+        ops.wkv6(r, k, v, w, u, chunk=S - 1)
+
+
+def test_rwkv_forward_launches_wkv6_once_per_layer(cuda):
+    """The registry's forward on the card runs the recurrence as the
+    kernel, once per layer, and matches the plain forward."""
+    import dataclasses
+
+    from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.models import registry
+    from repro_torch.models import rwkv6 as W
+    api = registry.build("rwkv6-7b", smoke=True, device="cuda")
+    cfg = dataclasses.replace(api.cfg, dtype=torch.float32)
+    api = registry._rwkv_api("rwkv6-7b", cfg, "cuda")
+    params = api.init(torch.Generator("cuda").manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 100))).to(cuda)
+    rs.reset_launches()
+    with torch.inference_mode():
+        lk = api.forward(params, {"tokens": tokens})
+        assert rs.LAUNCHES["wkv6"] == cfg.num_layers
+        lp, _ = W.forward(params, cfg, tokens, use_kernel=False)
+    assert rs.LAUNCHES["wkv6"] == cfg.num_layers
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)

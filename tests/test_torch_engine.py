@@ -2,7 +2,9 @@
 at K = 1/4/8 x pipeline depth 1/2, the ``host_blocked`` contract, and one
 run on the same arguments as the JAX engine (float32 weights) with equal
 tokens, admission and completion steps, ``paging_stats`` and
-``duplex_speedup``."""
+``duplex_speedup``; the same for a recurrent cache (rwkv6-7b, paging
+gated off): slot reuse, staggered arrivals with chunked prefill and
+unequal prompts."""
 
 import dataclasses
 
@@ -176,3 +178,123 @@ def test_token_exact_with_tenants_attached(api, params, megastep, depth):
                                   else 0)
     assert eng.paging_stats()["tenants"] == {
         "redis": kv.stats(), "vectordb": vec.stats()}
+
+
+# ---------------------------------------------------------------------------
+# a recurrent cache: RWKV6 (paging gated off, frozen-row keep)
+# ---------------------------------------------------------------------------
+
+RWKV = "rwkv6-7b"
+
+
+@pytest.fixture(scope="module")
+def rwkv_api():
+    return TR.build(RWKV, smoke=True, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def rwkv_params(rwkv_api):
+    return rwkv_api.init(torch.Generator().manual_seed(7))
+
+
+def _rwkv_engine(api, params, **kw):
+    eng = ServeEngine(api, params, EngineConfig(
+        **{"max_batch": 2, "cache_len": 32, "device": "cpu", **kw}))
+    assert not eng.paged and eng.pool is None
+    return eng
+
+
+def test_recurrent_state_reset_on_slot_reuse(rwkv_api, rwkv_params):
+    """More requests than slots, all at once: a recycled slot's recurrent
+    state (wkv, shift tokens) is wiped at admission
+    (tests/test_serve_engine.py:70-85)."""
+    prompts = np.random.default_rng(8).integers(
+        0, rwkv_api.cfg.vocab, (4, 5)).astype(np.int32)
+    ref = _reference(rwkv_api, rwkv_params, prompts, 6, 32, 2)
+    eng = _rwkv_engine(rwkv_api, rwkv_params)
+    rids = [eng.submit(prompts[i], 6).rid for i in range(4)]
+    outs = eng.run(max_steps=200)
+    for i, rid in enumerate(rids):
+        np.testing.assert_array_equal(outs[rid], ref[i])
+    assert eng.paging_stats()["paged"] is False
+
+
+@pytest.mark.parametrize("megastep", [1, 4, 8])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_recurrent_token_exact_vs_reference(rwkv_api, rwkv_params, megastep,
+                                            depth):
+    """Staggered arrivals with chunked prefill (``prefill_chunk=3``) put
+    decoding rows beside chunk-prefilling rows, whose extra micro-steps
+    must not advance the decoding rows' state; five requests on two
+    slots recycle rows. Token-exact at every K and depth
+    (tests/test_megastep.py:71)."""
+    prompts = np.random.default_rng(9).integers(
+        0, rwkv_api.cfg.vocab, (5, 7)).astype(np.int32)
+    ref = _reference(rwkv_api, rwkv_params, prompts, 8, 32, 2)
+    eng = _rwkv_engine(rwkv_api, rwkv_params, prefill_chunk=3,
+                       megastep=megastep, pipeline_depth=depth)
+    rids = [eng.submit(prompts[i], 8, arrival_step=2 * i).rid
+            for i in range(5)]
+    outs = eng.run(max_steps=300)
+    for i, rid in enumerate(rids):
+        np.testing.assert_array_equal(outs[rid], ref[i])
+    st = eng.stats()
+    assert st["host_blocked"] == (st["megasteps"] if depth == 1 else 1)
+    if megastep > 1:
+        assert st["host_dispatches"] < st["steps"]
+
+
+@pytest.mark.parametrize("megastep", [1, 4])
+def test_recurrent_unequal_prompts_exact(rwkv_api, rwkv_params, megastep):
+    """Unequal prompt lengths desynchronize the batch further
+    (tests/test_serve_engine.py:87-110); each request against its own
+    static decode."""
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, rwkv_api.cfg.vocab, n).astype(np.int32)
+               for n in (3, 7, 5)]
+    refs = [reference_decode(rwkv_api, rwkv_params, p[None], 6,
+                             cache_len=32).numpy()[0] for p in prompts]
+    eng = _rwkv_engine(rwkv_api, rwkv_params, prefill_chunk=3,
+                       megastep=megastep)
+    rids = [eng.submit(p, 6, arrival_step=2 * i).rid
+            for i, p in enumerate(prompts)]
+    outs = eng.run(max_steps=200)
+    for rid, want in zip(rids, refs):
+        np.testing.assert_array_equal(outs[rid], want)
+
+
+def test_recurrent_same_run_as_the_jax_engine():
+    """rwkv6-7b smoke in float32 on the reference's weights: the port's
+    engine and the JAX engine give the same tokens, admission and
+    completion steps and stats under staggered arrivals, unequal prompts
+    and chunked prefill."""
+    from repro_torch.models import rwkv6 as TW
+    japi0 = R.build(RWKV, smoke=True)
+    jp = japi0.init(jax.random.PRNGKey(9))
+    japi = R._rwkv_api(RWKV, dataclasses.replace(japi0.cfg,
+                                                 dtype=jnp.float32))
+    jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    tcfg = dataclasses.replace(TR.build(RWKV, smoke=True,
+                                        device="cpu").cfg,
+                               dtype=torch.float32)
+    tapi = TR._rwkv_api(RWKV, tcfg, "cpu")
+    tp = TW.params_from_jax(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), jp), tcfg)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 256, int(rng.integers(3, 9))).astype(
+        np.int32) for _ in range(5)]
+    kw = dict(max_batch=2, cache_len=32, prefill_chunk=3, megastep=4,
+              pipeline_depth=2)
+    je = JaxServeEngine(japi, jp32, JaxEngineConfig(**kw))
+    te = ServeEngine(tapi, tp, EngineConfig(**kw, device="cpu"))
+    jr = [je.submit(p, 7, arrival_step=2 * i).rid
+          for i, p in enumerate(prompts)]
+    tr = [te.submit(p, 7, arrival_step=2 * i).rid
+          for i, p in enumerate(prompts)]
+    jo, to = je.run(max_steps=300), te.run(max_steps=300)
+    for a, b in zip(jr, tr):
+        np.testing.assert_array_equal(to[b], jo[a])
+        assert te.completed[b].admitted_step == je.completed[a].admitted_step
+        assert te.completed[b].done_step == je.completed[a].done_step
+    assert te.paging_stats() == je.paging_stats()
+    assert te.stats() == je.stats()
