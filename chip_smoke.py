@@ -94,8 +94,9 @@ REPLACES = {
 
 # flash_attention against ref.attention on the card, at the reference's
 # tolerances (tests/test_kernels.py:36-48): atol = rtol = 3e-2 in bf16
-# (the plain version rounds P to bf16 before P.V, the kernel keeps it in
-# f32), 2e-5 in f32. (B, S, H, KV, hd, dtype, mask keywords)
+# (both round P to bf16 before P.V: the kernel's tensor-core body, 64-row
+# q and kv tiles), 2e-5 in f32 (the kernel's CUDA-core body, a different
+# body). (B, S, H, KV, hd, dtype, mask keywords)
 FLASH_CHECKS = [
     (4, 2048, 9, 3, 64, torch.bfloat16, {}),                 # smollm path
     (2, 512, 8, 1, 256, torch.bfloat16, {"prefix_len": 256}),  # paligemma
@@ -105,11 +106,28 @@ FLASH_CHECKS = [
     (1, 256, 2, 2, 64, torch.bfloat16, {"window": 96}),
     (1, 128, 2, 2, 64, torch.bfloat16, {"causal": False}),
     (1, 256, 4, 4, 128, torch.bfloat16, {}),
-    # both path shapes in f32, where 2e-5 holds: in bf16, 3e-2 is about the
-    # size of |o| itself in the last rows at S = 2048 (~0.03)
+    # both path shapes in f32, where 2e-5 holds; this runs the CUDA-core
+    # body, not the one the models run in bf16 (see FLASH_PATH)
     (4, 2048, 9, 3, 64, torch.float32, {}),
     (2, 512, 8, 1, 256, torch.float32, {"prefix_len": 256}),
+    # edges of the tensor-core design: a ragged last q and kv tile (200 is
+    # 3 x 64 + 8), GQA with 8 q heads on one kv head at hd 128, and a
+    # prefix that ends inside the second 64-row q tile at hd 256
+    (2, 200, 4, 2, 64, torch.bfloat16, {}),
+    (1, 256, 8, 1, 128, torch.bfloat16, {}),
+    (1, 256, 2, 1, 256, torch.bfloat16, {"prefix_len": 96}),
 ]
+
+# the tensor-core body at the path shapes, held tighter than 3e-2, which
+# is about the size of |o| itself in the last rows at S = 2048 (~0.03):
+# in every 64-query block of each (batch, head), the kernel's max abs
+# error against ref.attention may exceed that of one
+# scaled_dot_product_attention call on the same inputs (which rounds P to
+# bf16 too) by at most FLASH_TC_ULPS bf16 ulps of the block's largest
+# |o|. A control, ref.attention with the last 64 queries losing their
+# first 64 keys (a window of S - 64: one kv tile), must break it.
+FLASH_PATH = {(4, 2048, 9, 3, 64), (2, 512, 8, 1, 256)}
+FLASH_TC_ULPS = 1
 
 # the forward path: (arch, batch, sequence); paligemma's first 256
 # positions are the stub patch embeddings, then 256 text tokens
@@ -135,6 +153,10 @@ LOGITS_ATOL = 0.25
 RWKV_LOGITS_ATOL = 5e-3
 # profiler device time against CUDA-event stream time (measure_flash)
 FLASH_EVENT_SHARE = 0.10
+# clock cycles of the spin kernel that holds the stream while timed calls
+# queue behind it (cuda_ms(held=True)): ~25 ms, longer than the host takes
+# to queue any timed run
+HOLD_CYCLES = 50_000_000
 # wkv6 against ref.wkv6 on the card, at the reference's atol = rtol = 1e-4
 # (tests/test_kernels.py:107): (B, S, H, hs, draw w and u as the model
 # does). The reference's four shapes, ragged S (1000 and 77 are no
@@ -159,6 +181,10 @@ RWKV_RESET = 128
 RWKV_SERVE = dict(max_batch=4, cache_len=64, megastep=8, pipeline_depth=2,
                   prefill_chunk=4)
 RWKV_REQUESTS, RWKV_PROMPT, RWKV_GEN = 8, 32, 16
+# kernel instances whose -Xptxas -v report must show no spills: the
+# tensor-core flash body at every head dim, and wkv6 at the path's hs
+NO_SPILL = {"flash_kernel_tc<64>", "flash_kernel_tc<128>",
+            "flash_kernel_tc<256>", "wkv6_kernel<64>"}
 # spin kernels that open each profiler window, and how many profiles
 # device_events takes before it gives up
 PROFILE_LEAD = 32
@@ -176,13 +202,19 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean ms per call of ``fn`` by CUDA events over back-to-back calls."""
+def cuda_ms(fn, iters: int = 50, warmup: int = 5,
+            held: bool = False) -> float:
+    """Mean ms per call of ``fn`` by CUDA events over back-to-back calls.
+    ``held``: a spin kernel holds the stream while the calls are queued,
+    so the events time the card running them back to back and not the
+    host's launch rate (a call shorter than its launch cost)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if held:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -447,11 +479,14 @@ def check_flash() -> None:
     for i, (B, S, H, KV, hd, dtype, mask) in enumerate(FLASH_CHECKS):
         q, k, v = flash_inputs(B, S, H, KV, hd, dtype, seed=200 + i)
         where = f"B,S,H,KV,hd = {B},{S},{H},{KV},{hd} {dtype} {mask}"
-        err = compare_flash(fa.flash_attention(q, k, v, **mask),
-                            ref.attention(q, k, v, **mask), where)
+        got = fa.flash_attention(q, k, v, **mask)
+        want = ref.attention(q, k, v, **mask)
+        err = compare_flash(got, want, where)
         torch.cuda.synchronize()
         print(f"flash_attention matches the plain version at {where} "
               f"(max abs err {err:.3g})", flush=True)
+        if dtype == torch.bfloat16 and (B, S, H, KV, hd) in FLASH_PATH:
+            check_flash_blocks(q, k, v, mask, got, want, where)
     q, k, v = flash_inputs(1, 200, 2, 2, 64, torch.bfloat16, seed=0)
     try:
         ops.flash_attention(q, k, v)
@@ -459,6 +494,54 @@ def check_flash() -> None:
         print(f"flash_attention refuses S=200 on the card: {e}", flush=True)
     else:
         fail("flash_attention accepted S=200 with 128-blocks")
+
+
+def check_flash_blocks(q, k, v, mask, got, want, where) -> None:
+    """The kernel's output ``got`` at a path shape against FLASH_TC_ULPS:
+    per 64-query block of each (batch, head), its max abs error against
+    ``want`` (ref.attention) less SDPA's, in bf16 ulps of the block's
+    largest |want|, and the same for the control (a window of S - 64),
+    which must exceed the limit."""
+    from repro_torch.kernels import ref
+    B, S, H, hd = q.shape
+    blocks = lambda x: x.float().view(B, S // 64, 64, H, hd).amax((2, 4))
+    top = blocks(want.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(top.clamp(min=2.0 ** -126)))
+                     - 7)
+    lib_err = blocks((sdpa_call(q, k, v, mask)().transpose(1, 2).float()
+                      - want.float()).abs())
+    control = ref.attention(q, k, v, **{**mask, "window": S - 64})
+    over, control_over = (
+        ((blocks((x.float() - want.float()).abs()) - lib_err) / ulp)
+        .max().item() for x in (got, control))
+    print(f"flash_attention at {where}, per 64-query block: max abs error "
+          f"beyond SDPA's {over:.3g} bf16 ulps of the block's largest |o| "
+          f"(limit {FLASH_TC_ULPS}; control {control_over:.3g})",
+          flush=True)
+    if not over <= FLASH_TC_ULPS:
+        fail(f"flash_attention at {where}: a 64-query block's error is "
+             f"{over} bf16 ulps beyond SDPA's (limit {FLASH_TC_ULPS})")
+    if not control_over > FLASH_TC_ULPS:
+        fail(f"flash_attention at {where}: the control (a window of "
+             f"S - 64) is {control_over} ulps beyond SDPA's, within the "
+             f"limit {FLASH_TC_ULPS}: the check cannot see one lost tile")
+
+
+def sdpa_call(q, k, v, mask: dict):
+    """One call of PyTorch's ``scaled_dot_product_attention`` (the
+    yardstick, which the port never calls) on q, k, v in the reference's
+    layout: ``is_causal=True`` for a causal mask, else ``attn_mask`` =
+    ``visible_mask``; ``enable_gqa``. Returns the call, whose output is
+    (B, H, S, hd)."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if mask:
+        attn_mask = torch.from_numpy(visible_mask(q.shape[1],
+                                                  **mask)).cuda()
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=attn_mask, enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
 
 
 def visible_mask(S: int, causal=True, window=None, prefix_len=0):
@@ -476,38 +559,28 @@ def visible_mask(S: int, causal=True, window=None, prefix_len=0):
 
 def measure_flash(shape, mask: dict) -> dict:
     """Time the flash_attention kernel, its plain version and one call of
-    PyTorch's ``scaled_dot_product_attention`` (the yardstick, which the
-    port never calls: ``is_causal=True`` for a causal mask, else
-    ``attn_mask`` = ``visible_mask``; ``enable_gqa``) on the same tensors
-    at (B, S, H, KV, hd) in bf16, by the profiler's device time, with the
-    bounds of this work: visible pairs x 4 hd FLOP against 67 TFLOP/s f32
-    on CUDA cores (``bound_ms``: the kernel's arithmetic) and 989 TFLOP/s
-    bf16 on tensor cores (``bound_ms_bf16``), and q, k, v and o once
-    against 3.35 TB/s.
+    PyTorch's ``scaled_dot_product_attention`` (``sdpa_call``) on the
+    same tensors at (B, S, H, KV, hd) in bf16, by the profiler's device time, with the
+    bound of this work: visible pairs x 4 hd FLOP against 989 TFLOP/s
+    bf16 on tensor cores, where the kernel runs both products, and q, k,
+    v and o once against 3.35 TB/s (``bound_ms``; ``bound_ms_f32`` is the
+    same work against 67 TFLOP/s f32 on CUDA cores, the floor of the
+    kernel's f32 body).
 
     The times are checked, not taken on trust: the kernel must be the one
-    device operation of its call and reach no less than ``bound_ms``, and
-    its device time must agree with CUDA events over back-to-back calls
-    within FLASH_EVENT_SHARE (a call far longer than its launch keeps the
-    stream busy); the plain version and SDPA must agree with
-    ``ref.attention`` within the reference's tolerance, reach no less
-    than ``bound_ms_bf16``, and take no more device time than stream time
-    (within FLASH_EVENT_SHARE)."""
-    import torch.nn.functional as F
-
+    device operation of its call, and its device time must agree with
+    CUDA events over calls queued behind a held stream within
+    FLASH_EVENT_SHARE (``call_ms`` records back-to-back calls from the
+    host, launch cost included, for comparison); the plain version
+    and SDPA must agree with ``ref.attention`` within the reference's
+    tolerance; all three must reach no less than ``bound_ms`` and take no
+    more device time than stream time (within FLASH_EVENT_SHARE)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     B, S, H, KV, hd = shape
     q, k, v = flash_inputs(B, S, H, KV, hd, torch.bfloat16, seed=99)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     vis = visible_mask(S, **mask)
-    if mask:
-        attn_mask = torch.from_numpy(vis).cuda()
-        lib = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=attn_mask, enable_gqa=True)
-    else:
-        lib = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib = sdpa_call(q, k, v, mask)
     fn = lambda: fa.flash_attention(q, k, v, **mask)
     plain = lambda: ref.attention(q, k, v, **mask)
     want = plain()
@@ -517,9 +590,9 @@ def measure_flash(shape, mask: dict) -> dict:
     flops = 4 * hd * pairs
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f32 = flops / FP32_OPS_PER_S * 1e3
-    bound, bound_bf16 = max(t_bytes, t_f32), \
-        max(t_bytes, flops / BF16_TC_OPS_PER_S * 1e3)
+    t_ops = flops / BF16_TC_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    bound_f32 = max(t_bytes, flops / FP32_OPS_PER_S * 1e3)
     ms = device_profile(fn, iters=10, per_call={"flash_kernel": 1})
     plain_ms = device_profile(plain, iters=5)[0]
     lib_ms = device_profile(lib, iters=10)[0]
@@ -527,32 +600,33 @@ def measure_flash(shape, mask: dict) -> dict:
         fail(f"flash_attention at {shape}: {ms[1]} device operations per "
              f"call, want 1")
     ms = ms[0]
-    ev = {"kernel": cuda_ms(fn, iters=10), "plain": cuda_ms(plain, iters=5),
-          "SDPA": cuda_ms(lib, iters=10)}
+    ev = {"kernel": cuda_ms(fn, iters=10, held=True),
+          "plain": cuda_ms(plain, iters=5, held=True),
+          "SDPA": cuda_ms(lib, iters=10, held=True)}
+    call_ms = cuda_ms(fn, iters=10)
     print(f"flash_attention at {shape} {mask}: device ms (profiler) / "
-          f"stream ms (CUDA events): kernel {ms:.4f} / {ev['kernel']:.4f}, "
-          f"plain {plain_ms:.4f} / {ev['plain']:.4f}, SDPA {lib_ms:.4f} / "
-          f"{ev['SDPA']:.4f}", flush=True)
+          f"stream ms (CUDA events, stream held): kernel {ms:.4f} / "
+          f"{ev['kernel']:.4f}, plain {plain_ms:.4f} / {ev['plain']:.4f}, "
+          f"SDPA {lib_ms:.4f} / {ev['SDPA']:.4f}; back-to-back calls from "
+          f"the host {call_ms:.4f}", flush=True)
     if abs(ms - ev["kernel"]) > FLASH_EVENT_SHARE * ev["kernel"]:
         fail(f"flash_attention at {shape}: the profiler's {ms} ms and the "
              f"CUDA events' {ev['kernel']} ms differ by more than "
              f"{FLASH_EVENT_SHARE:.0%}")
-    for name, t, floor in (("kernel", ms, bound), ("plain", plain_ms,
-                                                   bound_bf16),
-                           ("SDPA", lib_ms, bound_bf16)):
-        if t < floor or t > (1 + FLASH_EVENT_SHARE) * ev[name]:
+    for name, t in (("kernel", ms), ("plain", plain_ms), ("SDPA", lib_ms)):
+        if t < bound or t > (1 + FLASH_EVENT_SHARE) * ev[name]:
             fail(f"flash_attention at {shape}: {name} {t} ms by the "
-                 f"profiler is below its bound {floor} ms or above its "
+                 f"profiler is below its bound {bound} ms or above its "
                  f"stream time {ev[name]} ms")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": REPLACES["flash_attention"], "shape": list(shape),
             "mask": mask, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_f32 else "operations",
-            "bound_ms_bf16": bound_bf16, "visible_pairs": pairs,
-            "flop": flops, "bytes": nbytes, "library_ms": lib_ms,
-            "library_max_abs_err": lib_err}
+            "event_ms": ev["kernel"], "call_ms": call_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_f32": bound_f32, "sdpa_ratio": ms / lib_ms,
+            "visible_pairs": pairs, "flop": flops, "bytes": nbytes,
+            "library_ms": lib_ms, "library_max_abs_err": lib_err}
 
 
 def forward_phase(arch: str, B: int, S: int) -> dict:
@@ -748,13 +822,15 @@ def check_wkv6() -> None:
 def measure_wkv6(shape) -> dict:
     """Time the wkv6 kernel and its plain version at (B, S, H, hs) with
     the model's w and u, by the profiler's device time, with the bound of
-    this work: r, k, v, w and out once (and u) against 3.35 TB/s, and
-    7 hs^2 f32 operations per (b, t, h) (k*v, u*kv, +S, the output FMA's
-    two, w*S, +kv) against 67 TFLOP/s on CUDA cores. The kernel must be
-    the one device operation of its call, reach no less than its bound,
-    and agree with CUDA events over back-to-back calls within
-    FLASH_EVENT_SHARE. No single PyTorch call computes the WKV6
-    recurrence, so there is no library time."""
+    this work: r, k, v, w and out once (and u) against 3.35 TB/s, and the
+    fewest f32 operations the function needs, 5 hs^2 + 5 hs per (b, t, h)
+    (r*S and its sum, k*v, w*S, +kv per state element; the bonus dot
+    sum_i r_i u_i k_i and v_j times it), against 67 TFLOP/s on CUDA
+    cores. The kernel must be the one device operation of its call,
+    reach no less than its bound, and agree with CUDA events over calls
+    queued behind a held stream within FLASH_EVENT_SHARE. No single
+    PyTorch call computes the WKV6 recurrence, so there is no library
+    time."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as rs
     B, S, H, hs = shape
@@ -763,17 +839,19 @@ def measure_wkv6(shape) -> dict:
     plain = lambda: ref.wkv6(*x)[0]
     err = compare_wkv(fn(), plain(), shape)
     n = B * S * H
-    flops = 7 * hs * hs * n
+    flops = (5 * hs * hs + 5 * hs) * n
     nbytes = 4 * (5 * n * hs + H * hs)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_OPS_PER_S * 1e3
     bound = max(t_bytes, t_ops)
     ms, per_call = device_profile(fn, iters=10, per_call={"wkv6_kernel": 1})
-    plain_ms = device_profile(plain, iters=2)[0]
-    ev = cuda_ms(fn, iters=10)
+    # the plain version's 4096-step Python loop takes ~1.5 s of host time a
+    # call; the comparison above was its warm-up
+    plain_ms = device_profile(plain, iters=1, warmup=0)[0]
+    ev = cuda_ms(fn, iters=10, held=True)
     print(f"wkv6 at {shape}: device ms (profiler) {ms:.4f}, stream ms "
-          f"(CUDA events) {ev:.4f}, plain {plain_ms:.4f}, bound "
-          f"{bound:.4f}", flush=True)
+          f"(CUDA events, stream held) {ev:.4f}, plain {plain_ms:.4f}, "
+          f"bound {bound:.4f}", flush=True)
     if per_call != 1:
         fail(f"wkv6 at {shape}: {per_call} device operations per call, "
              f"want 1")
@@ -785,7 +863,7 @@ def measure_wkv6(shape) -> dict:
             "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
             "replaces": REPLACES["wkv6"], "shape": list(shape),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
+            "event_ms": ev, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "flop": flops, "bytes": nbytes, "library_ms": None}
 
@@ -1344,6 +1422,46 @@ def build_all() -> None:
           flush=True)
     for mod, log in zip(mods, logs):
         print(f"{mod.SOURCE.name}:\n{log.strip()}", flush=True)
+    usage = {}
+    for log in logs:
+        usage.update(ptxas_usage(log))
+    print(json.dumps({"ptxas": usage}), flush=True)
+    spilled = {k: u for k, u in usage.items()
+               if k in NO_SPILL and u["spill_stores"] + u["spill_loads"]}
+    if spilled:
+        fail(f"kernels spill to local memory: {spilled}")
+    built = {mod for mod, log in zip(mods, logs) if log}
+    if {fa, rs} <= built and not NO_SPILL <= usage.keys():
+        fail(f"ptxas reported no usage for {sorted(NO_SPILL - usage.keys())}")
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers, shared memory and spills per kernel instance from
+    nvcc's ``-Xptxas -v`` log, keyed as ``name<N>`` (N the head dim or
+    head size it is instantiated for)."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?"
+                      r"(flash_kernel_\w+?|wkv6_kernel)ILi(\d+)E", line)
+        if m:
+            cur = f"{m.group(1)}<{m.group(2)}>"
+            out[cur] = {"registers": 0, "smem_bytes": 0, "spill_stores": 0,
+                        "spill_loads": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur]["spill_stores"] = int(m.group(1))
+            out[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def main() -> int:
@@ -1353,7 +1471,17 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     print(f"card: {gpu_line()}", flush=True)
+    # wall seconds of each phase, printed before the kernels line
+    phase_s, last = {}, [time.perf_counter()]
+    start = last[0]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+
     build_all()
+    mark("build")
     D = 30 * 2 * 3 * 64          # kv_dims of smollm-135m FULL
     check_kernels([(2, 16, D), (8, 16, D), (32, 16, D), (3, 5, 1001)])
     check_l2([(4, 3, 16, 64), (1, 1, 8, 128), (8, 5, 32, 32),
@@ -1367,25 +1495,34 @@ def main() -> int:
                                    "call_ms", "bound_ms")}
               for row in (measure_l2((4, n, 16, D)) for n in (2, 8, 32))]
     print(json.dumps({"kernel_sweep": sweep}), flush=True)
+    mark("stream_and_l2_kernels")
     check_flash()
     # device_events takes a profile as measured only when two agree: the
     # profiler has been seen to drop this kernel's events (PERF.md)
     flash_row = measure_flash((4, 2048, 9, 3, 64), {})
     print(json.dumps({"flash_attention_paligemma": measure_flash(
         (2, 512, 8, 1, 256), {"prefix_len": 256})}), flush=True)
+    mark("flash_kernel")
     check_wkv6()
     wkv_row = measure_wkv6(WKV_CHECKS[-1][:4])
+    mark("wkv6_kernel")
 
     api, params = full_model()
     shapes_seen: dict = {}
     launches, profile_serving_run = serve_full(api, params, shapes_seen)
+    mark("serve")
     l2_shapes: Counter = Counter()
     tenant_launches = serve_tenants(api, params, l2_shapes)
-    forward = {arch: forward_phase(arch, B, S)
-               for arch, B, S in FORWARD_RUNS}
+    mark("tenants")
+    forward = {}
+    for arch, B, S in FORWARD_RUNS:
+        forward[arch] = forward_phase(arch, B, S)
+        mark(f"forward_{arch}")
     torch.cuda.empty_cache()
     rwkv_api, rwkv_params, rwkv_forward = rwkv_forward_phase(*RWKV_FORWARD)
+    mark("rwkv_forward")
     rwkv_serve = rwkv_serve_phase(rwkv_api, rwkv_params)
+    mark("rwkv_serve")
     del rwkv_api, rwkv_params
     torch.cuda.empty_cache()
 
@@ -1409,7 +1546,11 @@ def main() -> int:
     kernels.append(wkv_row)
     # last: after a trace of a million operations, the profiler has been
     # seen to record nothing of a later short profile of a kernel
+    mark("kernel_rows")
     profile_serving_run()
+    mark("serving_profile")
+    print(json.dumps({"phase_seconds": phase_s,
+                      "total_s": time.perf_counter() - start}), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

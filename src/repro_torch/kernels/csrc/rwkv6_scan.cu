@@ -10,105 +10,155 @@
 // into out (B, S, H, hs) f32, from a zero state S (hs x hs) per (b, h):
 //   out_t[j] = sum_i r_t[i] * (S[i][j] + u[i] * (k_t[i] * v_t[j]))
 //   S[i][j] <- w_t[i] * S[i][j] + k_t[i] * v_t[j]
-// The state update rounds where the plain version (models/rwkv6.wkv_scan,
-// eager PyTorch) rounds: k*v, u*kv, S + u*kv, w*S and w*S + kv are each
-// rounded to f32 (__fmul_rn / __fadd_rn: no FMA contraction), so the state
-// is bit-equal to the plain version's at every step and only the order of
-// the 64-term output sum differs. No final state is returned, as in the
-// Pallas kernel.
+// evaluated in the factored form
+//   out_t[j] = sum_i r_t[i] * S[i][j] + v_t[j] * c_t,
+//   c_t = sum_i r_t[i] * u[i] * k_t[i]
+// (the bonus term does not depend on the column). The state update rounds
+// where the plain version (models/rwkv6.wkv_scan, eager PyTorch) rounds:
+// k*v, w*S and w*S + kv are each rounded to f32 (__fmul_rn / __fadd_rn, no
+// FMA contraction), so the state is bit-equal to the plain version's at
+// every step; the output differs only by the order of its sums and by the
+// factoring. No final state is returned, as in the Pallas kernel.
 //
-// Bound on an H100 SXM: bytes of r, k, v, w and out once (5 * B*S*H*hs * 4)
-// against 3.35 TB/s; operations 7 * hs^2 per (b, t, h) (6 in the update and
-// sum above plus the sum's add) against 67 TFLOP/s f32 on CUDA cores. At the
-// rwkv6-7b prefill shape (B, S, H, hs) = (2, 4096, 64, 64): 671 MB, 0.20 ms
-// of bytes; 15.0 GFLOP, 0.22 ms of operations. What sets the pace instead is
-// the sequential loop over S: every step waits for the one before it.
+// What bounds it on an H100 SXM: bytes of r, k, v, w and out once
+// (5 * B*S*H*hs * 4) against 3.35 TB/s; operations 5 * hs^2 per (b, t, h)
+// (r*S and its sum, k*v, w*S, + kv) against 67 TFLOP/s f32 on CUDA cores.
+// At the rwkv6-7b prefill shape (B, S, H, hs) = (2, 4096, 64, 64): 671 MB,
+// 0.20 ms of bytes; 10.7 GFLOP, 0.16 ms of operations. What sets the pace
+// instead is the sequential loop over S: every step waits for the one
+// before it, so the time is steps x (instructions a step issues on one SM
+// + the latency they do not hide).
 //
-// Design (simple and right first): column j of S evolves on its own
-// (S[:, j] <- w * S[:, j] + k * v_j) and out_t[j] needs only that column,
-// so one thread block per (b, h) holds the whole state in registers: four
-// neighbouring lanes share a column, each holding hs/4 of its rows (16
-// floats at hs = 64), and combine their partial output sums with two
-// butterfly shuffles. That is 4*hs threads per block (256 at hs = 64): at
-// the path shape 128 blocks of 8 warps, one per SM, instead of the 1-2
-// warps a thread-per-column design would give each (b, h). The block walks
-// time in chunks of kSteps steps: r, k, w and v of a chunk are staged in
-// shared memory (r, k, w with each lane group's rows padded by 4 floats so
-// the four 16-byte reads of a warp hit distinct banks), while the next
-// chunk's 16-byte global loads are already in flight in registers. Steps
-// past S (a ragged last chunk) are loaded as zeros and not computed.
+// Design: column j of S evolves on its own (S[:, j] <- w * S[:, j] + k *
+// v_j) and out_t[j] needs only that column, so one thread block per (b, h)
+// holds the whole state in registers, each thread a block of kRows rows x
+// kCols columns (4 x 4 at hs = 64: 256 threads, 8 warps; at the path shape
+// 128 blocks, one per SM). Each element costs four FP instructions a step
+// (r*S into the column's partial sum, k*v, w*S, + kv), not six: the bonus
+// dot c_t is taken once per step for the whole block, while a chunk is
+// staged, from the registers its loads land in. So a step issues at least
+// 4 hs^2 / 32 = 512 warp instructions of FP on one SM (128 cycles), and
+// that, not bytes or latency, is what bounds the kernel on this card.
+// What the layout does about the rest: r, k and w are read by every
+// column, 12 hs^2 bytes a step if each thread read its own; here each
+// read of r_i, k_i, w_i serves a thread's 4 columns, and the lanes of a
+// warp share a few rows, so every read is a 4-byte broadcast (one
+// wavefront; on an H100 measured faster than 16-byte broadcasts, which
+// cost more than one). v and a thread's partial sums move as one 16-byte access.
+// The row groups' partial output sums go to shared memory each step and
+// are summed, in one fixed order, when the chunk is stored: no shuffles
+// in the step. The block walks time in chunks of kSteps steps: r, k, w
+// and v of a chunk are staged in shared memory while the next chunk's
+// 16-byte global loads are already in flight in registers; a chunk's
+// outputs leave 16 bytes a thread. Steps past S (a ragged last chunk) are
+// loaded as zeros and neither computed nor stored.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kParts = 4;  // lanes sharing one state column
-
 template <int HS>
 struct Shape {
-  static constexpr int kRows = HS / kParts;              // rows per thread
-  static constexpr int kThreads = HS * kParts;
-  static constexpr int kSteps = HS <= 64 ? 32 : 16;      // steps per chunk
-  static constexpr int kPartStride = kRows + 4;          // padded lane group
-  static constexpr int kRowStride = kParts * kPartStride;  // padded step row
+  // thread (p, q) holds kRows rows (lane group p) of kCols neighbouring
+  // columns (column group q) of the state
+  static constexpr int kRows = HS == 128 ? 8 : 4;
+  static constexpr int kCols = HS == 16 ? 2 : 4;
+  static constexpr int kColGroups = HS / kCols;          // lanes a group
+  static constexpr int kParts = HS / kRows;              // lane groups
+  static constexpr int kThreads = kParts * kColGroups;   // 32 to 512
+  static constexpr int kSteps = HS == 128 ? 16 : 32;     // steps per chunk
   static constexpr int kVec = HS / 4;                    // float4 per row
   static constexpr int kLoads = kSteps * kVec / kThreads;  // per thread
-  static_assert(kRows % 4 == 0, "hs must be a multiple of 16");
-  static_assert(kLoads * kThreads == kSteps * kVec, "whole loads");
+  // s_r, s_k, s_w, s_v [kSteps][HS], the lane groups' partial output sums
+  // [kParts][kSteps][HS] and the bonus dots c [2][kSteps] (two chunks)
+  static constexpr size_t kSmem =
+      sizeof(float) * (static_cast<size_t>(kSteps) * HS * (4 + kParts)
+                       + 2 * kSteps);
+  static_assert(kLoads >= 1 && kLoads * kThreads == kSteps * kVec,
+                "whole loads");
+  static_assert(kVec <= 32 && kThreads % 32 == 0, "row sums within a warp");
 };
 
-// one state row of one column: rounds as the plain version does
-__device__ __forceinline__ void wkv_row(float rr, float kk, float ww,
-                                        float uu, float vj, float& s,
-                                        float& acc) {
-  const float kv = __fmul_rn(kk, vj);
-  const float sk = __fadd_rn(s, __fmul_rn(uu, kv));
-  acc = fmaf(rr, sk, acc);
-  s = __fadd_rn(__fmul_rn(ww, s), kv);
+// N floats moved as one 8- or 16-byte access
+template <int N>
+struct VecT;
+template <>
+struct VecT<2> {
+  using type = float2;
+};
+template <>
+struct VecT<4> {
+  using type = float4;
+};
+
+// a 4-byte shared-memory read; every lane of a lane group reads the same
+// address, so a warp's read is a broadcast of one wavefront (on an H100
+// measured faster than 16-byte broadcasts, which the compiler would
+// otherwise merge these into)
+__device__ __forceinline__ float lds(const float* p) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x)
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+  return x;
+}
+
+// one state element: out's partial sum reads the state before the
+// update; the update rounds as the plain version does
+__device__ __forceinline__ void wkv_elem(float rr, float kk, float ww,
+                                         float vj, float& s, float& acc) {
+  acc = fmaf(rr, s, acc);
+  s = __fadd_rn(__fmul_rn(ww, s), __fmul_rn(kk, vj));
 }
 
 template <int HS>
-__global__ void __launch_bounds__(HS * kParts)
+__global__ void __launch_bounds__(Shape<HS>::kThreads)
 wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ w,
             const float* __restrict__ u, float* __restrict__ out, int seq,
             int heads) {
   using C = Shape<HS>;
   constexpr int R = C::kRows;
-  __shared__ __align__(16) float s_r[C::kSteps * C::kRowStride];
-  __shared__ __align__(16) float s_k[C::kSteps * C::kRowStride];
-  __shared__ __align__(16) float s_w[C::kSteps * C::kRowStride];
-  __shared__ __align__(16) float s_v[C::kSteps * HS];
+  constexpr int NC = C::kCols;
+  constexpr int kChunk = C::kSteps * HS;
+  extern __shared__ float4 smem4[];
+  float* s_r = reinterpret_cast<float*>(smem4);   // [kSteps][HS]
+  float* s_k = s_r + kChunk;
+  float* s_w = s_k + kChunk;
+  float* s_v = s_w + kChunk;
+  float* s_part = s_v + kChunk;                   // [kParts][kSteps][HS]
+  float* s_c = s_part + C::kParts * kChunk;       // [2][kSteps]
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh - b * heads;
   const int tid = threadIdx.x;
-  const int j = tid / kParts;   // state column (value index)
-  const int p = tid % kParts;   // lane group: rows p*R .. p*R + R - 1
+  const int j0 = (tid % C::kColGroups) * NC;  // columns j0 .. j0 + NC - 1
+  const int p = tid / C::kColGroups;          // rows p*R .. p*R + R - 1
 
-  float uu[R], st[R];
+  float st[R][NC];
 #pragma unroll
-  for (int m = 0; m < R; ++m) {
-    uu[m] = u[h * HS + p * R + m];
-    st[m] = 0.0f;
-  }
+  for (int m = 0; m < R; ++m)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) st[m][c] = 0.0f;
 
   const long long step = static_cast<long long>(heads) * HS;  // t -> t+1
   const long long base = static_cast<long long>(b) * seq * step
                          + static_cast<long long>(h) * HS;      // (b,0,h,0)
+
+  // every load of this thread covers the same four columns c4 .. c4 + 3
+  const int c4 = (tid % C::kVec) * 4;
+  const float* uh = u + h * HS + c4;
+  const float4 u4 = make_float4(uh[0], uh[1], uh[2], uh[3]);
 
   // the next chunk, in flight in registers: kLoads float4 of each array
   float4 pr[C::kLoads], pk[C::kLoads], pw[C::kLoads], pv[C::kLoads];
   auto load = [&](int t0) {
 #pragma unroll
     for (int l = 0; l < C::kLoads; ++l) {
-      const int e = tid + l * C::kThreads;
-      const int t = e / C::kVec;
-      const int c = (e - t * C::kVec) * 4;
+      const int t = (tid + l * C::kThreads) / C::kVec;
       if (t0 + t < seq) {
-        const long long g = base + (t0 + t) * step + c;
+        const long long g = base + (t0 + t) * step + c4;
         pr[l] = *reinterpret_cast<const float4*>(r + g);
         pk[l] = *reinterpret_cast<const float4*>(k + g);
         pw[l] = *reinterpret_cast<const float4*>(w + g);
@@ -118,58 +168,106 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
       }
     }
   };
-  auto stage = [&]() {
+  // the loaded chunk into shared memory, with each step's bonus dot
+  // c_t = sum_i r_i u_i k_i summed over the kVec lanes holding step t
+  auto stage = [&](float* c_buf) {
 #pragma unroll
     for (int l = 0; l < C::kLoads; ++l) {
-      const int e = tid + l * C::kThreads;
-      const int t = e / C::kVec;
-      const int c = (e - t * C::kVec) * 4;
-      const int o = t * C::kRowStride + (c / R) * C::kPartStride + c % R;
-      *reinterpret_cast<float4*>(s_r + o) = pr[l];
-      *reinterpret_cast<float4*>(s_k + o) = pk[l];
-      *reinterpret_cast<float4*>(s_w + o) = pw[l];
-      *reinterpret_cast<float4*>(s_v + t * HS + c) = pv[l];
+      const int t = (tid + l * C::kThreads) / C::kVec;
+      *reinterpret_cast<float4*>(s_r + t * HS + c4) = pr[l];
+      *reinterpret_cast<float4*>(s_k + t * HS + c4) = pk[l];
+      *reinterpret_cast<float4*>(s_w + t * HS + c4) = pw[l];
+      *reinterpret_cast<float4*>(s_v + t * HS + c4) = pv[l];
+      float c = pr[l].x * u4.x * pk[l].x;
+      c = fmaf(pr[l].y * u4.y, pk[l].y, c);
+      c = fmaf(pr[l].z * u4.z, pk[l].z, c);
+      c = fmaf(pr[l].w * u4.w, pk[l].w, c);
+#pragma unroll
+      for (int off = 1; off < C::kVec; off <<= 1)
+        c += __shfl_xor_sync(0xffffffffu, c, off);
+      if (c4 == 0) c_buf[t] = c;
+    }
+  };
+  // a finished chunk's outputs: the lane groups' partial sums in one
+  // fixed order plus v_j c_t, 16 bytes a thread (before stage() replaces
+  // s_v: each thread reads and then rewrites the same four columns)
+  auto store = [&](int t0, const float* c_buf) {
+#pragma unroll
+    for (int l = 0; l < C::kLoads; ++l) {
+      const int t = (tid + l * C::kThreads) / C::kVec;
+      float4 o = *reinterpret_cast<const float4*>(s_part + t * HS + c4);
+#pragma unroll
+      for (int q = 1; q < C::kParts; ++q) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            s_part + q * kChunk + t * HS + c4);
+        o.x += a.x;
+        o.y += a.y;
+        o.z += a.z;
+        o.w += a.w;
+      }
+      const float4 vv = *reinterpret_cast<const float4*>(s_v + t * HS + c4);
+      const float c = c_buf[t];
+      if (t0 + t < seq) {
+        *reinterpret_cast<float4*>(out + base + (t0 + t) * step + c4) =
+            make_float4(fmaf(vv.x, c, o.x), fmaf(vv.y, c, o.y),
+                        fmaf(vv.z, c, o.z), fmaf(vv.w, c, o.w));
+      }
     }
   };
 
   load(0);
-  for (int t0 = 0; t0 < seq; t0 += C::kSteps) {
+  int chunk = 0;
+  for (int t0 = 0; t0 < seq; t0 += C::kSteps, ++chunk) {
+    float* c_buf = s_c + (chunk & 1) * C::kSteps;
     __syncthreads();            // the previous chunk is fully consumed
-    stage();
+    if (t0 > 0) store(t0 - C::kSteps, s_c + ((chunk - 1) & 1) * C::kSteps);
+    stage(c_buf);
     __syncthreads();
     if (t0 + C::kSteps < seq) load(t0 + C::kSteps);
     const int n = min(C::kSteps, seq - t0);
+    const float* sr = s_r + p * R;
+    const float* sk = s_k + p * R;
+    const float* sw = s_w + p * R;
+    float* sp = s_part + p * kChunk + j0;
     for (int t = 0; t < n; ++t) {
-      const float* sr = s_r + t * C::kRowStride + p * C::kPartStride;
-      const float* sk = s_k + t * C::kRowStride + p * C::kPartStride;
-      const float* sw = s_w + t * C::kRowStride + p * C::kPartStride;
-      const float vj = s_v[t * HS + j];
-      float acc = 0.0f;
+      // this thread's NC values of v, and its partial sums, move as one
+      // 8- or 16-byte access
+      using V = typename VecT<NC>::type;
+      const V v_raw = *reinterpret_cast<const V*>(s_v + t * HS + j0);
+      const float* vv = reinterpret_cast<const float*>(&v_raw);
+      V acc_raw;
+      float* acc = reinterpret_cast<float*>(&acc_raw);
 #pragma unroll
-      for (int m = 0; m < R; m += 4) {
-        const float4 r4 = *reinterpret_cast<const float4*>(sr + m);
-        const float4 k4 = *reinterpret_cast<const float4*>(sk + m);
-        const float4 w4 = *reinterpret_cast<const float4*>(sw + m);
-        wkv_row(r4.x, k4.x, w4.x, uu[m], vj, st[m], acc);
-        wkv_row(r4.y, k4.y, w4.y, uu[m + 1], vj, st[m + 1], acc);
-        wkv_row(r4.z, k4.z, w4.z, uu[m + 2], vj, st[m + 2], acc);
-        wkv_row(r4.w, k4.w, w4.w, uu[m + 3], vj, st[m + 3], acc);
+      for (int c = 0; c < NC; ++c) acc[c] = 0.0f;
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const float rr = lds(sr + t * HS + m);
+        const float kk = lds(sk + t * HS + m);
+        const float ww = lds(sw + t * HS + m);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          wkv_elem(rr, kk, ww, vv[c], st[m][c], acc[c]);
       }
-      // the four lane groups of column j, in one fixed order
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      if (p == 0) out[base + (t0 + t) * step + j] = acc;
+      *reinterpret_cast<V*>(sp + t * HS) = acc_raw;
     }
   }
+  __syncthreads();
+  store(((seq - 1) / C::kSteps) * C::kSteps, s_c + ((chunk - 1) & 1)
+                                                   * C::kSteps);
 }
 
 template <int HS>
 int launch(const float* r, const float* k, const float* v, const float* w,
            const float* u, float* out, int batch, int seq, int heads,
            cudaStream_t s) {
+  using C = Shape<HS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      wkv6_kernel<HS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(batch) * heads);
-  wkv6_kernel<HS><<<grid, Shape<HS>::kThreads, 0, s>>>(r, k, v, w, u, out,
-                                                       seq, heads);
+  wkv6_kernel<HS><<<grid, C::kThreads, C::kSmem, s>>>(r, k, v, w, u, out,
+                                                      seq, heads);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -177,7 +275,8 @@ int launch(const float* r, const float* k, const float* v, const float* w,
 
 // r, k, v, w, out (batch, seq, heads, hs) f32 and u (heads, hs) f32, all
 // contiguous and 16-byte aligned (the wrapper checks); hs in {16, 32, 64,
-// 128}. Returns cudaGetLastError() after the launch.
+// 128}. Returns cudaGetLastError() after the launch, or the error of the
+// shared-memory opt-in.
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const void* w, const void* u, void* out,
                            int batch, int seq, int heads, int hs,

@@ -1,25 +1,28 @@
-"""Hopper CUDA kernel for blockwise (flash) attention, and its wrapper.
+"""Hopper CUDA kernels for blockwise (flash) attention, and their wrapper.
 
 Port of ``repro/kernels/flash_attention.py`` (``flash_attention``, the
 ``pl.pallas_call`` at :123, kernel body ``_flash_kernel`` at :31): the
 attention of ``layers.attn_apply(use_kernel=True)`` on the full-sequence
-forward (prefill, loss evaluation). The kernel is CUDA C++ for
+forward (prefill, loss evaluation). The kernels are CUDA C++ for
 ``sm_90a`` in ``csrc/flash_attention.cu``, built at first use and
 loaded with ``ctypes`` by ``kernels/_build.py``. Nothing is compiled or
 loaded when this module is imported.
 
 What bounds it on an H100, and what the design does about it: the work
 is visible (query, key) pairs times 4*hd FLOP, far more than the bytes
-(q, k, v and o once), so it is compute-bound — against 67 TFLOP/s in f32
-on CUDA cores, which is where this first kernel does all its arithmetic
-(no tensor cores, no TF32, P kept in f32 as the Pallas kernel keeps it),
-and against 989 TFLOP/s bf16 for a later tensor-core redesign. The
-kernel visits only kv tiles holding a visible pair, so causal and
-windowed attention do about the visible share of the dense work. One
-256-thread block per (64-row q tile, head, batch) keeps m, l and the f32
-accumulator in registers and stages q, K, V and P in shared memory (70 to
-217 KB, requested with ``cudaFuncSetAttribute``), read 16 bytes at a
-time so that the FMA pipe, not shared memory, sets the pace.
+(q, k, v and o once), so it is compute-bound, against 989 TFLOP/s bf16
+on tensor cores. For bf16 inputs (the model's path) both products run
+on tensor cores (``mma.sync.m16n8k16``, bf16 in, f32 accumulate):
+QK^T on the bf16 inputs, whose products are exact in f32, and P.V with
+P rounded to bf16, the precision of the reference model's own plain
+attention; m, l and the accumulator stay f32. One 128-thread block
+(four warps of 16 q rows) per (64-row q tile, head, batch), the longest
+causal tiles launched first; K and V tiles stream through a two-stage
+``cp.async`` ring in swizzled shared memory, read with ``ldmatrix``;
+only kv tiles holding a visible pair are visited, and only tiles on a
+mask edge are masked element by element. For f32 inputs the kernel
+keeps a CUDA-core body, all in f32 (P too): the reference's f32
+tolerance, 2e-5, is beyond bf16 and TF32 tensor cores.
 
 It computes the reference model's mask (``layers._mask_bias``), not the
 Pallas kernel's: prefix keys are visible to every query under ``causal``
@@ -28,10 +31,10 @@ whatever q tile it sits in, and the window does not exempt them.
 The wrapper takes CUDA tensors only: it checks device, dtype, rank,
 shapes, contiguity, 16-byte alignment and ``hd`` in {64, 128, 256} and
 raises on anything else, allocates the output with ``torch.empty``,
-launches on the current stream, raises if the launch was refused, and
-adds one to ``LAUNCHES["flash_attention"]``. The plain version is
-``kernels/ref.py::attention``; ``kernels/ops.py`` picks between the two
-by the tensor's device.
+launches on the current stream (one kernel per call), raises if the
+launch was refused, and adds one to ``LAUNCHES["flash_attention"]``. The
+plain version is ``kernels/ref.py::attention``; ``kernels/ops.py`` picks
+between the two by the tensor's device.
 """
 
 from __future__ import annotations

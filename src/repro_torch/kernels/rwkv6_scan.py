@@ -11,16 +11,22 @@ this module is imported.
 
 What bounds it on an H100, and what the design does about it: the bytes
 (r, k, v, w read once, out written once: 0.20 ms at the rwkv6-7b prefill
-shape) and the f32 operations (7*hs^2 per (b, t, h): 0.22 ms) are both
-small; the sequential loop over time is what sets the pace. The TPU
-kernel's (B*H, S/chunk) grid with a VMEM carry does not carry over: blocks
-run in parallel on Hopper and nothing passes between them. Instead one
-thread block per (b, h) keeps the whole (hs x hs) f32 state in registers
-and loops over time, four lanes to a state column (columns evolve
-independently), so the path shape's 128 (b, h) pairs give each SM eight
-warps; a chunk of r, k, w and v is staged in shared memory while the
-next one loads. The state update rounds exactly as the plain version
-does, so it is bit-equal to it; only the output sum's order differs.
+shape) and the f32 operations (5*hs^2 per (b, t, h): 0.16 ms) are both
+small; the sequential loop over time sets the pace, each step costing
+the instructions it issues on one SM. The TPU kernel's (B*H, S/chunk)
+grid with a VMEM carry does not carry over: blocks run in parallel on
+Hopper and nothing passes between them. Instead one thread block per
+(b, h) keeps the whole (hs x hs) f32 state in registers and loops over
+time, each thread a block of 4 rows x 4 columns (columns evolve
+independently; the row groups' partial output sums meet in shared
+memory). The output is taken in the factored form sum_i r_i S_ij +
+v_j (sum_i r_i u_i k_i): the bonus dot is summed once per step while a
+chunk is staged, so a state element costs four FP instructions a step
+instead of six, and each 4-byte broadcast read of r, k and w serves four
+columns. A chunk of r, k, w and v is staged in shared memory while the
+next one loads, and the chunk's outputs leave 16 bytes a thread. The
+state update rounds exactly as the plain version does, so the state is
+bit-equal to it; only the output's sums differ in order.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, rank,
 shapes, contiguity, 16-byte alignment and ``hs`` in {16, 32, 64, 128}

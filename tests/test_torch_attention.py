@@ -5,6 +5,8 @@ tolerances of ``tests/test_kernels.py``'s flash tests, and its dense
 ``ref.attention`` where the Pallas kernel's block skip drops prefix
 keys. Inputs are made with numpy from a seed and handed to both."""
 
+import math
+
 import numpy as np
 import pytest
 
@@ -149,3 +151,145 @@ def test_chunked_attention_matches_the_reference(q_block):
                                rtol=2e-6)
     dense = ref.attention(q, k, v, window=40, prefix_len=8)
     torch.testing.assert_close(got, dense, atol=2e-6, rtol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's bf16 arithmetic (flash_kernel_tc), modelled in torch
+# ---------------------------------------------------------------------------
+
+TC_BQ = 64             # the tensor-core body's q tile height
+
+
+def _tc_bk(hd):
+    """Its kv tile height: 32 at hd 256, else 64."""
+    return 32 if hd == 256 else 64
+
+
+def _visible(qi, kj, S, causal, window, prefix_len):
+    vis = kj < S
+    if causal:
+        vis = vis & ((kj <= qi) | (kj < prefix_len))
+    if window is not None:
+        vis = vis & (kj > qi - window)
+    return vis
+
+
+def _tile_range(q_lo, S, causal, window, prefix_len, bq, bk):
+    """The kernel's visited kv tiles [t_begin, t_end) for one q tile."""
+    q_hi = min(q_lo + bq, S) - 1
+    t_end = -(-S // bk)
+    if causal:
+        t_end = min(t_end, max(q_hi, prefix_len - 1) // bk + 1)
+    # C's integer division truncates toward zero
+    t_begin = max(0, int((q_lo - window + 1) / bk)) if window else 0
+    return t_begin, t_end
+
+
+def _tc_model(q, k, v, *, causal=True, window=None, prefix_len=0):
+    """flash_kernel_tc's arithmetic: 64-row q tiles and ``_tc_bk``-row kv
+    tiles, only the kv tiles of ``_tile_range`` (checked to be those that
+    hold a visible pair), the per-element mask only on a tile that
+    straddles a mask edge, scores of the bf16 inputs summed in f32,
+    the online softmax in the log2 domain with f32 m, l and acc, P rounded
+    to bf16 before P.V, and acc / max(l, 1e-20) rounded to bf16."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    bq, bk = TC_BQ, _tc_bk(hd)
+    scale_log2 = torch.tensor((1.0 / math.sqrt(hd)) * math.log2(math.e),
+                              dtype=torch.float32)
+    neg = torch.tensor(-1e30)
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    out = torch.empty_like(q)
+    for q_lo in range(0, S, bq):
+        qi = torch.arange(q_lo, q_lo + bq)
+        qt = torch.zeros((B, bq, H, hd))
+        n_q = min(bq, S - q_lo)
+        qt[:, :n_q] = q[:, q_lo:q_lo + n_q].float()
+        m = torch.full((B, H, bq), -1e30)
+        l = torch.zeros((B, H, bq))
+        acc = torch.zeros((B, H, bq, hd))
+        t_begin, t_end = _tile_range(q_lo, S, causal, window, prefix_len,
+                                     bq, bk)
+        # the visit rule: exactly the kv tiles that hold a visible pair of
+        # a real query
+        held = _visible(qi[:n_q, None], torch.arange(S)[None, :], S, causal,
+                        window, prefix_len).any(0).nonzero().flatten()
+        assert set((held // bk).tolist()) == set(range(t_begin, t_end)), q_lo
+        for t in range(t_begin, t_end):
+            k_lo = t * bk
+            kj = torch.arange(k_lo, k_lo + bk)
+            n_k = min(bk, S - k_lo)
+            kt = torch.zeros((B, bk, H, hd))
+            vt = torch.zeros((B, bk, H, hd))
+            kt[:, :n_k] = kf[:, k_lo:k_lo + n_k]
+            vt[:, :n_k] = vf[:, k_lo:k_lo + n_k]
+            x = torch.einsum("bqhd,bkhd->bhqk", qt, kt) * scale_log2
+            k_last = k_lo + bk - 1
+            edge = (k_last >= S
+                    or (causal and not (k_last <= q_lo
+                                        or k_last < prefix_len))
+                    or (window is not None
+                        and not k_lo > q_lo + bq - 1 - window))
+            vis = _visible(qi[:, None], kj[None, :], S, causal, window,
+                           prefix_len)
+            if edge:
+                x = torch.where(vis, x, neg)
+            else:
+                # a tile off every edge is visible throughout (real rows)
+                assert vis[:n_q].all()
+            m_new = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(), vt)
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-20)[..., None]
+        out[:, q_lo:q_lo + n_q] = o.permute(0, 2, 1, 3)[:, :n_q].to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("shape,mask", [
+    ((2, 256, 4, 2, 64), {}),
+    ((1, 256, 4, 4, 128), {}),
+    ((2, 128, 8, 1, 64), {}),
+    ((1, 256, 2, 2, 64), {"window": 96}),
+    ((1, 128, 2, 2, 64), {"causal": False}),
+    ((1, 256, 2, 1, 64), {"prefix_len": 32}),
+    ((1, 256, 8, 1, 128), {}),
+    ((1, 128, 2, 1, 256), {}),
+])
+def test_tc_model_matches_the_pallas_kernel(shape, mask):
+    """The kernel's bf16 tile arithmetic against the Pallas kernel in
+    interpret mode, at the reference's bf16 tolerance."""
+    (jq, jk, jv), (q, k, v) = _qkv(*shape, torch.bfloat16,
+                                   seed=sum(shape) + 1)
+    got = _tc_model(q, k, v, **mask)
+    want = jops.flash_attention(jq, jk, jv, **mask)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("shape,mask", [
+    ((1, 256, 2, 1, 64), {"prefix_len": 160}),
+    ((1, 256, 2, 1, 64), {"window": 64, "prefix_len": 32}),
+    ((1, 256, 2, 1, 256), {"prefix_len": 96}),
+    ((2, 200, 4, 2, 64), {}),
+    ((1, 200, 2, 2, 64), {"window": 40, "prefix_len": 70}),
+])
+def test_tc_model_matches_the_oracle_where_pallas_cannot(shape, mask):
+    """Prefix keys past the first q tile, a window beside a prefix (where
+    the Pallas kernel is wrong) and a ragged S (which it refuses): the
+    kernel's bf16 tile arithmetic against the dense oracle."""
+    (jq, jk, jv), (q, k, v) = _qkv(*shape, torch.bfloat16,
+                                   seed=sum(shape) + 2)
+    got = _tc_model(q, k, v, **mask)
+    want = jref.attention(jq, jk, jv, **mask)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])

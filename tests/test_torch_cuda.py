@@ -187,6 +187,34 @@ def test_flash_attention_matches_plain_version(cuda, shape, mask):
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("shape,mask", [
+    # a ragged last q and kv tile of the 64-row tiles (200 = 3 x 64 + 8)
+    ((2, 200, 4, 2, 64), {}),
+    ((1, 200, 2, 2, 64), {"window": 40, "prefix_len": 70}),
+    # GQA with 8 q heads on one kv head at hd 128
+    ((1, 256, 8, 1, 128), {}),
+    # a prefix ending inside the second q tile at hd 256
+    ((1, 256, 2, 1, 256), {"prefix_len": 96}),
+])
+def test_flash_attention_edges_of_the_tensor_core_tiles(cuda, shape, mask):
+    """The bf16 kernel (tensor cores, 64-row tiles) at the edges of its
+    tiling against ``ref.attention``, at the reference's bf16
+    tolerance; the wrapper takes a ragged S the model path never hands
+    it."""
+    B, S, H, KV, hd = shape
+    g = torch.Generator().manual_seed(S + hd + H)
+    q = torch.randn((B, S, H, hd), generator=g).to(torch.bfloat16).to(cuda)
+    k = torch.randn((B, S, KV, hd), generator=g).to(torch.bfloat16).to(cuda)
+    v = torch.randn((B, S, KV, hd), generator=g).to(torch.bfloat16).to(cuda)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref.attention(q, k, v, **mask),
+                               atol=3e-2, rtol=3e-2)
+
+
 def test_flash_wrapper_rejects_bad_inputs(cuda):
     q = torch.randn((1, 64, 2, 64), device=cuda).to(torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
@@ -228,7 +256,8 @@ def test_forward_through_the_kernel_on_the_card(cuda):
     torch.testing.assert_close(lg, lp, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(2, 200, 3, 64), (1, 77, 2, 16)])
+@pytest.mark.parametrize("shape", [(2, 200, 3, 64), (1, 77, 2, 16),
+                                   (1, 100, 2, 128), (2, 33, 2, 32)])
 def test_wkv6_matches_plain_version(cuda, shape):
     """The kernel against ``ref.wkv6`` at the reference's tolerance, with
     a ragged S (no multiple of the kernel's 32-step chunk)."""

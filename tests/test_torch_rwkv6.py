@@ -128,6 +128,45 @@ def test_wkv_scan_final_state_matches_the_reference(with_state):
                                atol=WKV_TOL, rtol=WKV_TOL)
 
 
+def _wkv_factored(r, k, v, w, u):
+    """The CUDA kernel's arithmetic (``wkv6_kernel``) in torch: the state
+    update rounded where the plain loop rounds (k*v, w*S, w*S + kv), and
+    the output in the factored form sum_i r_i S_ij + v_j c_t with the
+    bonus dot c_t = sum_i r_i u_i k_i taken once per step."""
+    B, S, H, hs = r.shape
+    state = torch.zeros((B, H, hs, hs))
+    outs = []
+    for t in range(S):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        c = (rt * u * kt).sum(-1, keepdim=True)                  # (B, H, 1)
+        outs.append(torch.einsum("bhi,bhij->bhj", rt, state) + vt * c)
+        kv = kt[..., :, None] * vt[..., None, :]
+        state = wt[..., :, None] * state + kv
+    return torch.stack(outs, dim=1), state
+
+
+@pytest.mark.parametrize("B,S,H,hs,chunk", [
+    (2, 256, 2, 32, 64),
+    (1, 128, 4, 64, 128),
+    (2, 64, 1, 16, 32),
+    (1, 192, 3, 32, 64),
+    (1, 96, 2, 128, 32),
+])
+def test_wkv6_factored_form_matches_the_pallas_kernel(B, S, H, hs, chunk):
+    """The kernel's factored output against the Pallas kernel in
+    interpret mode and its oracle at the reference's tolerance, with a
+    state bit-equal to the plain loop's."""
+    arrs = _wkv_inputs(B, S, H, hs, seed=B * S + H + hs + 1)
+    jin, tin = _both(arrs)
+    got, state = _wkv_factored(*tin)
+    _, plain_state = ref.wkv6(*tin)
+    assert torch.equal(state, plain_state)
+    for want in (np.asarray(jops.wkv6(*jin, chunk=chunk)),
+                 np.asarray(jref.wkv6(*jin)[0])):
+        np.testing.assert_allclose(got.numpy(), want, atol=WKV_TOL,
+                                   rtol=WKV_TOL)
+
+
 def test_wkv6_wrapper_refuses_cpu_tensors_without_building():
     t = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
