@@ -45,7 +45,9 @@
 //   longest causal tiles launch first. Q (64 x hd) and a two-stage ring
 //   of K and V tiles (64 x hd each; 32 x hd at hd 256) live in shared
 //   memory as bf16, rows XOR-swizzled by 16-byte chunk so that ldmatrix
-//   reads are free of bank conflicts; the next tile's cp.async loads are
+//   reads are free of bank conflicts (the row stride is hd rounded up to
+//   64 elements: at hd 80 and 112 the XOR would otherwise carry a chunk
+//   into the next row); the next tile's cp.async loads are
 //   in flight while this tile's products run. Registers bound the design
 //   at hd 256, where a warp's 16 x 256 f32 accumulator takes 128 a
 //   thread: there Q fragments are read again from shared memory per tile
@@ -71,7 +73,9 @@
 //   stays. One 256-thread block per (64-row q tile, head, batch); q, K,
 //   V and P staged as f32 in shared memory (up to 217 KB at hd 256), a
 //   16 x 16 thread grid with each row's max and sum in one half warp,
-//   16-byte shared-memory reads and rows padded by four floats.
+//   16-byte shared-memory reads and rows padded by four floats. Each tx
+//   thread owns float4 output columns 4 tx + 64 i; at hd 80 and 112 the
+//   last pass over the columns is partial.
 //
 // Rows past S (a ragged last tile) are loaded as zeros, masked and not
 // stored.
@@ -98,18 +102,26 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int HD>
 constexpr int kTcBK = HD == 256 ? 32 : 64;
 
+// row stride of the shared tiles in bf16 elements: HD rounded up to a
+// multiple of 64 (eight 16-byte chunks), so that the XOR of swz stays
+// inside its row at every HD (80 has 10 chunks a row, 112 has 14) and a
+// row starts in bank 0
+template <int HD>
+constexpr int kTcLd = (HD + 63) / 64 * 64;
+
 template <int HD>
 constexpr size_t tc_smem_bytes() {
-  return sizeof(__nv_bfloat16) * HD
+  return sizeof(__nv_bfloat16) * kTcLd<HD>
          * (static_cast<size_t>(kTcBQ) + 2 * kTcStages * kTcBK<HD>);
 }
 
-// element offset of 16-byte chunk `chunk` of row `row` in a swizzled tile
-// of HD bf16 a row: the chunk index is XORed with row % 8, so the eight
-// rows one ldmatrix phase reads sit in eight distinct bank groups
+// element offset of 16-byte chunk `chunk` of row `row` in a swizzled tile:
+// the chunk index is XORed with row % 8, so the eight rows one ldmatrix
+// phase reads sit in eight distinct bank groups; with the row stride a
+// multiple of eight chunks the XOR never leaves the row
 template <int HD>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  return row * HD + ((chunk ^ (row & 7)) << 3);
+  return row * kTcLd<HD> + ((chunk ^ (row & 7)) << 3);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -203,11 +215,11 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,
   constexpr int kN = HD / 8;             // 8-column tiles of the output
   constexpr bool kQinRegs = HD <= 128;
   constexpr int BK = kTcBK<HD>;
-  constexpr int kTile = BK * HD;         // elements of one K or V tile
+  constexpr int kTile = BK * kTcLd<HD>;  // elements of one K or V tile
   extern __shared__ __align__(128) uint8_t smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kTcBQ * HD;                 // [stage][BK][HD]
-  __nv_bfloat16* vs = ks + kTcStages * kTile;          // [stage][BK][HD]
+  __nv_bfloat16* ks = qs + kTcBQ * kTcLd<HD>;       // [stage][BK][ld]
+  __nv_bfloat16* vs = ks + kTcStages * kTile;          // [stage][BK][ld]
   const uint32_t qs_a = smem_addr(qs);
   const uint32_t ks_a = smem_addr(ks);
   const uint32_t vs_a = smem_addr(vs);
@@ -483,7 +495,10 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                  int prefix_len) {
   constexpr int LD = HD + kPad;          // row stride of q, k, v in smem
   constexpr int LP = kBK + kPad;         // row stride of P in smem
-  constexpr int kM = HD / 64;            // float4 output chunks per thread
+  // float4 output chunks per thread: the 16 tx threads cover HD / 4
+  // float4 columns, 64 floats a pass; at HD 80 and 112 the last pass is
+  // partial and only tx < (HD % 64) / 4 take part
+  constexpr int kM = (HD + 63) / 64;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // [kBQ][LD]
   float* ks = qs + kBQ * LD;                     // [kBK][LD]
@@ -605,6 +620,7 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
         for (int i = 0; i < kM; ++i) {
+          if (64 * i + 4 * tx >= HD) continue;
           const float4 vv = lds4(vs + (j + jj) * LD + 64 * i + 4 * tx);
 #pragma unroll
           for (int r = 0; r < kRows; ++r) {
@@ -628,6 +644,7 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     float* dst = ob + static_cast<size_t>(qi) * q_row;
 #pragma unroll
     for (int i = 0; i < kM; ++i) {
+      if (64 * i + 4 * tx >= HD) continue;
       const float4 a = acc[r][i];
       *reinterpret_cast<float4*>(dst + 64 * i + 4 * tx) =
           make_float4(a.x / inv, a.y / inv, a.z / inv, a.w / inv);
@@ -688,7 +705,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q, o (B, S, H, hd); k, v (B, S, KV, hd); all contiguous, of one dtype
-// (is_bf16 != 0: bf16, else f32), 16-byte aligned; hd in {64, 128, 256};
+// (is_bf16 != 0: bf16, else f32), 16-byte aligned; hd in {64, 80, 112,
+// 128, 256};
 // H % KV == 0; B, S, H and KV positive (the wrapper never passes an empty
 // tensor). window <= 0 means no window. Returns cudaGetLastError() after
 // the launch, or the error of the shared-memory opt-in.
@@ -705,6 +723,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 64:
       return launch<64>(q, k, v, o, B, S, H, KV, is_bf16, scale, causal,
                         window, prefix_len, s);
+    case 80:
+      return launch<80>(q, k, v, o, B, S, H, KV, is_bf16, scale, causal,
+                        window, prefix_len, s);
+    case 112:
+      return launch<112>(q, k, v, o, B, S, H, KV, is_bf16, scale, causal,
+                         window, prefix_len, s);
     case 128:
       return launch<128>(q, k, v, o, B, S, H, KV, is_bf16, scale, causal,
                          window, prefix_len, s);

@@ -11,10 +11,11 @@ imported.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity and raises on anything else, allocates its outputs with
-``torch.empty``, launches on the current stream, raises if the launch was
-refused, and adds one to its entry in ``LAUNCHES``. The plain versions
-live in ``kernels/ref.py``; ``kernels/ops.py`` picks between the two by
-the tensor's device.
+``torch.empty``, picks the launch geometry (``geometry``: 16-byte or
+element accesses, blocks a row), launches on the current stream, raises if the launch
+was refused, and adds one to its entry in ``LAUNCHES``. The plain
+versions live in ``kernels/ref.py``; ``kernels/ops.py`` picks between the
+two by the tensor's device.
 """
 
 from __future__ import annotations
@@ -32,6 +33,16 @@ SOURCE = _build.CSRC / "duplex_stream.cu"
 #: else (``chip_smoke.py`` reads these to show the serving path ran the
 #: kernels).
 LAUNCHES = {"duplex_kv_stream": 0, "quant_stream": 0, "dequant_stream": 0}
+
+#: threads a block (``kThreads`` in the source)
+THREADS = 512
+#: elements of a unit on the 16-byte path (one int8 access, two bf16 ones)
+VEC_UNIT = 16
+#: blocks a row and direction, at most
+MAX_PARTS = 4
+#: blocks a launch may hold to still run in one wave: two of THREADS on
+#: each of 132 SMs
+WAVE_BLOCKS = 264
 
 _lib = None
 
@@ -55,9 +66,11 @@ def _load():
     if _lib is None:
         lib = _build.load(SOURCE)
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.duplex_kv_stream_launch.argtypes = [vp] * 6 + [ll, i32, vp]
-        lib.quant_stream_launch.argtypes = [vp] * 3 + [ll, i32, vp]
-        lib.dequant_stream_launch.argtypes = [vp] * 3 + [ll, i32, vp]
+        lib.duplex_kv_stream_launch.argtypes = [vp] * 6 + [ll] + [i32] * 3 \
+            + [vp]
+        lib.quant_stream_launch.argtypes = [vp] * 3 + [ll] + [i32] * 3 + [vp]
+        lib.dequant_stream_launch.argtypes = [vp] * 3 + [ll] + [i32] * 3 \
+            + [vp]
         for fn in (lib.duplex_kv_stream_launch, lib.quant_stream_launch,
                    lib.dequant_stream_launch):
             fn.restype = i32
@@ -65,6 +78,31 @@ def _load():
         lib.duplex_stream_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def geometry(rows: int, d: int, directions: int, aligned: bool = True
+             ) -> dict:
+    """How a launch takes its rows: ``vec`` (16-element units with 16-byte
+    accesses, where ``d % 16 == 0`` and the pointers are 16-byte
+    ``aligned``; else one element at a time), ``parts`` (blocks a row and
+    direction: on the 16-byte path 1, 2 or 4, the most that keep the
+    launch within WAVE_BLOCKS, a page-out part reading its whole row for
+    the amax and quantizing its share; 1 on the element path) and
+    ``blocks`` (``rows * directions * parts``; ``directions`` is 2 for the
+    fused pass)."""
+    vec = aligned and d % VEC_UNIT == 0
+    parts = 1
+    while (vec and 2 * parts <= MAX_PARTS
+           and rows * directions * 2 * parts <= WAVE_BLOCKS):
+        parts *= 2
+    return {"vec": vec, "parts": parts, "blocks": rows * directions * parts}
+
+
+def _args(rows, d, directions, tensors) -> tuple[int, int]:
+    """(vec, parts) of ``geometry`` for a launch on ``tensors``."""
+    g = geometry(rows, d, directions,
+                 all(t.data_ptr() % 16 == 0 for t in tensors))
+    return int(g["vec"]), g["parts"]
 
 
 def _blocks(t: torch.Tensor, name: str) -> tuple[int, int, int]:
@@ -104,7 +142,8 @@ def duplex_kv_stream(in_q: torch.Tensor, in_scale: torch.Tensor,
         _launch(lib, lib.duplex_kv_stream_launch, "duplex_kv_stream",
                 N * T, in_q.data_ptr(), in_scale.data_ptr(),
                 out_x.data_ptr(), in_deq.data_ptr(), out_q.data_ptr(),
-                out_scale.data_ptr(), N * T, D)
+                out_scale.data_ptr(), N * T, D,
+                *_args(N * T, D, 2, (in_q, out_x, in_deq, out_q)))
     return in_deq, out_q, out_scale
 
 
@@ -119,7 +158,7 @@ def quant_stream(out_x: torch.Tensor):
         out_scale = torch.empty((N, T, 1), dtype=torch.float32, device=dev)
         _launch(lib, lib.quant_stream_launch, "quant_stream", N * T,
                 out_x.data_ptr(), out_q.data_ptr(), out_scale.data_ptr(),
-                N * T, D)
+                N * T, D, *_args(N * T, D, 1, (out_x, out_q)))
     return out_q, out_scale
 
 
@@ -134,5 +173,5 @@ def dequant_stream(in_q: torch.Tensor, in_scale: torch.Tensor):
         in_deq = torch.empty((N, T, D), dtype=torch.bfloat16, device=dev)
         _launch(lib, lib.dequant_stream_launch, "dequant_stream", N * T,
                 in_q.data_ptr(), in_scale.data_ptr(), in_deq.data_ptr(),
-                N * T, D)
+                N * T, D, *_args(N * T, D, 1, (in_q, in_deq)))
     return in_deq

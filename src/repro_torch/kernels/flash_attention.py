@@ -29,7 +29,7 @@ Pallas kernel's: prefix keys are visible to every query under ``causal``
 whatever q tile it sits in, and the window does not exempt them.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, rank,
-shapes, contiguity, 16-byte alignment and ``hd`` in {64, 128, 256} and
+shapes, contiguity, 16-byte alignment and ``hd`` in ``HEAD_DIMS`` and
 raises on anything else, allocates the output with ``torch.empty``,
 launches on the current stream (one kernel per call), raises if the
 launch was refused, and adds one to ``LAUNCHES["flash_attention"]``. The
@@ -50,7 +50,7 @@ from repro_torch.kernels._build import check_tensor as _check
 SOURCE = _build.CSRC / "flash_attention.cu"
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 112, 128, 256)
 
 #: launches, counted where the kernel is launched and nowhere else
 LAUNCHES = {"flash_attention": 0}

@@ -10,10 +10,12 @@ imported.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, rank,
 contiguity and matching D and raises on anything else, allocates the
-output with ``torch.empty``, launches on the current stream, raises if
-the launch was refused, and adds one to ``LAUNCHES["l2_distance"]``. The
-plain version is ``kernels/ref.py::l2_distance``; ``kernels/ops.py``
-picks between the two by the tensor's device.
+output with ``torch.empty``, picks the launch geometry (``geometry``: how
+D and the rows are cut across blocks), launches on the current stream,
+raises if the launch was refused, and adds one to
+``LAUNCHES["l2_distance"]``. The plain version is
+``kernels/ref.py::l2_distance``; ``kernels/ops.py`` picks between the two
+by the tensor's device.
 """
 
 from __future__ import annotations
@@ -30,7 +32,61 @@ SOURCE = _build.CSRC / "vector_distance.cu"
 #: launches, counted where the kernel is launched and nowhere else
 LAUNCHES = {"l2_distance": 0}
 
+#: threads a block (``kThreads`` in the source)
+THREADS = 256
+#: queries a pass over the rows (``kQChunk``)
+Q_CHUNK = 8
+#: pool rows a block, at most (the kernel is instantiated for 1, 2 and 4)
+MAX_ROWS = 4
+#: slices of D, at most: one portable thread-block cluster
+MAX_CLUSTER = 8
+#: units of D a slice keeps at least, so a short D is not cut
+MIN_SLICE_UNITS = 64
+#: blocks a launch aims for: about one on each of 132 SMs
+TARGET_BLOCKS = 128
+#: elements of a unit on the 16-byte path
+VEC_UNIT = 8
+
 _lib = None
+
+
+def geometry(Q: int, N: int, T: int, D: int, aligned: bool = True) -> dict:
+    """How the kernel cuts its work: ``vec`` (8-element units, where
+    ``D % 8 == 0`` and the pointers are 16-byte ``aligned``; else one
+    element), ``rows_per_cta`` (1, 2 or 4: the most that still leave
+    TARGET_BLOCKS blocks; each staged query byte serves them all),
+    ``cluster`` (slices of D, one block each, a power of two: the fewest
+    that reach TARGET_BLOCKS blocks, up to MAX_CLUSTER while each slice
+    keeps MIN_SLICE_UNITS units),
+    ``slice_units``, ``tile_units`` (units a block takes per step, at
+    most one a thread), ``blocks`` and ``smem_bytes`` (a tile of up to
+    Q_CHUNK queries and, on the 16-byte path, of the block's rows; two
+    tiles where a slice takes more than one)."""
+    vec = aligned and D % VEC_UNIT == 0
+    unit = VEC_UNIT if vec else 1
+    units = D // unit
+    rows = N * T
+    max_cluster = 1
+    while (2 * max_cluster <= MAX_CLUSTER
+           and units // (2 * max_cluster) >= MIN_SLICE_UNITS):
+        max_cluster *= 2
+    rows_per_cta = 1
+    while (2 * rows_per_cta <= MAX_ROWS and -(-rows // (2 * rows_per_cta))
+           * max_cluster >= TARGET_BLOCKS):
+        rows_per_cta *= 2
+    groups = -(-rows // rows_per_cta)
+    cluster = 1
+    while cluster < max_cluster and groups * cluster < TARGET_BLOCKS:
+        cluster *= 2
+    slice_units = -(-units // cluster)
+    tile_units = min(slice_units, THREADS)
+    return {"vec": vec, "unit": unit, "units": units, "cluster": cluster,
+            "slice_units": slice_units, "tile_units": tile_units,
+            "rows_per_cta": rows_per_cta,
+            "blocks": groups * cluster,
+            "smem_bytes": (1 if tile_units == slice_units else 2)
+            * (min(Q, Q_CHUNK) * tile_units * unit * 4
+               + (rows_per_cta * tile_units * 16 if vec else 0))}
 
 
 def reset_launches() -> None:
@@ -51,7 +107,7 @@ def _load():
     if _lib is None:
         lib = _build.load(SOURCE)
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.l2_distance_launch.argtypes = [vp] * 3 + [i32] * 5 + [vp]
+        lib.l2_distance_launch.argtypes = [vp] * 3 + [i32] * 10 + [vp]
         lib.l2_distance_launch.restype = i32
         lib.vector_distance_error_string.argtypes = [i32]
         lib.vector_distance_error_string.restype = ctypes.c_char_p
@@ -78,11 +134,13 @@ def l2_distance(queries: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
         out = torch.empty((N, Q, T), dtype=torch.float32, device=dev)
         if N == 0 or T == 0:
             return out
-        vec = int(D % 8 == 0 and queries.data_ptr() % 16 == 0
-                  and blocks.data_ptr() % 16 == 0)
+        g = geometry(Q, N, T, D, queries.data_ptr() % 16 == 0
+                     and blocks.data_ptr() % 16 == 0)
         rc = lib.l2_distance_launch(
             queries.data_ptr(), blocks.data_ptr(), out.data_ptr(), N, Q, T,
-            D, vec, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            D, int(g["vec"]), g["cluster"], g["rows_per_cta"],
+            g["slice_units"], g["tile_units"], g["smem_bytes"],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         if rc != 0:
             raise RuntimeError(
                 "l2_distance kernel launch failed: "

@@ -158,11 +158,74 @@ def test_chunked_attention_matches_the_reference(q_block):
 # ---------------------------------------------------------------------------
 
 TC_BQ = 64             # the tensor-core body's q tile height
+TC_STAGES = 2          # its K/V ring depth
 
 
 def _tc_bk(hd):
     """Its kv tile height: 32 at hd 256, else 64."""
     return 32 if hd == 256 else 64
+
+
+def _tc_ld(hd):
+    """Row stride of its shared tiles in bf16 elements (``kTcLd``): hd
+    rounded up to a multiple of 64, eight 16-byte chunks."""
+    return -(-hd // 64) * 64
+
+
+def _swz(ld, row, chunk):
+    """``swz``: element offset of 16-byte chunk ``chunk`` of ``row`` in a
+    tile of row stride ``ld``, the chunk XORed with row % 8."""
+    return row * ld + ((chunk ^ (row & 7)) << 3)
+
+
+def _tc_smem_bytes(hd):
+    """``tc_smem_bytes``: the Q tile and two stages of K and V tiles."""
+    return 2 * _tc_ld(hd) * (TC_BQ + 2 * TC_STAGES * _tc_bk(hd))
+
+
+def _swizzle_faults(hd, ld, rows):
+    """What breaks the swizzled layout of a ``rows``-row tile of hd
+    columns at row stride ``ld``: a chunk mapped outside its own row, two
+    chunks on one place, or the eight rows one ldmatrix phase reads (rows
+    8i..8i+7, one chunk) not in eight distinct bank groups of 16 bytes."""
+    faults = []
+    seen = {}
+    for row in range(rows):
+        for chunk in range(hd // 8):
+            off = _swz(ld, row, chunk)
+            if not (row * ld <= off and off + 8 <= (row + 1) * ld):
+                faults.append(("outside its row", row, chunk, off))
+            if off in seen:
+                faults.append(("shared", row, chunk, seen[off]))
+            seen[off] = (row, chunk)
+    for row0 in range(0, rows, 8):
+        for chunk in range(hd // 8):
+            groups = {(_swz(ld, r, chunk) // 8) % 8
+                      for r in range(row0, row0 + 8)}
+            if len(groups) != 8:
+                faults.append(("bank conflict", row0, chunk, len(groups)))
+    return faults
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_tc_swizzle_stays_in_its_row(hd):
+    """Every (row, chunk) of the Q tile and of each K and V tile maps
+    inside its own row, one to one and free of ldmatrix bank conflicts,
+    and the tiles fill ``tc_smem_bytes`` exactly; the layout before hd 80
+    and 112 were added (row stride hd) fails there."""
+    ld = _tc_ld(hd)
+    for rows in (TC_BQ, _tc_bk(hd)):
+        assert _swizzle_faults(hd, ld, rows) == []
+    tiles = TC_BQ + 2 * TC_STAGES * _tc_bk(hd)
+    assert _tc_smem_bytes(hd) == 2 * tiles * ld
+    # the Q tile and the ring, one tile after another, end in the last row
+    top = max(_swz(ld, r, c) for r in range(tiles) for c in range(hd // 8))
+    assert (tiles - 1) * ld <= top and 2 * (top + 8) <= _tc_smem_bytes(hd)
+    assert _tc_smem_bytes(hd) <= 227 * 1024
+    unpadded = _swizzle_faults(hd, hd, TC_BQ)
+    assert (unpadded == []) == (hd % 64 == 0)
+    if hd in (80, 112):
+        assert ("outside its row", 7, 8, 7 * hd + 15 * 8) in unpadded
 
 
 def _visible(qi, kj, S, causal, window, prefix_len):
@@ -259,6 +322,10 @@ def _tc_model(q, k, v, *, causal=True, window=None, prefix_len=0):
     ((1, 256, 2, 1, 64), {"prefix_len": 32}),
     ((1, 256, 8, 1, 128), {}),
     ((1, 128, 2, 1, 256), {}),
+    ((1, 256, 4, 4, 80), {}),
+    ((2, 128, 8, 1, 112), {}),
+    ((1, 256, 2, 2, 80), {"window": 96}),
+    ((1, 256, 2, 1, 112), {"prefix_len": 32}),
 ])
 def test_tc_model_matches_the_pallas_kernel(shape, mask):
     """The kernel's bf16 tile arithmetic against the Pallas kernel in

@@ -45,7 +45,8 @@ def _assert_close(got, want):
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 11520), (6, 16, 11520),
-                                   (3, 5, 1001), (1, 1, 7)])
+                                   (8, 16, 11520), (32, 16, 11520),
+                                   (3, 5, 1001), (1, 1, 7), (300, 16, 48)])
 def test_kernels_match_plain_versions(cuda, shape):
     streams = _streams(*shape, seed=sum(shape), device=cuda)
     want = ref.duplex_kv_stream(*streams)
@@ -57,6 +58,23 @@ def test_kernels_match_plain_versions(cuda, shape):
     torch.cuda.synchronize()
     assert {k: ds.LAUNCHES[k] - before[k] for k in before} == {
         "duplex_kv_stream": 1, "quant_stream": 2, "dequant_stream": 2}
+
+
+def test_page_out_rounds_exact_ties_half_to_even(cuda):
+    """Rows whose values divide by their scale to exact half-integers
+    (amax 127, so the scale is 1): the kernels' codes equal the plain
+    version's true divide and round half to even, code for code."""
+    halves = torch.arange(-126, 127, dtype=torch.float32) + 0.5
+    row = torch.cat([halves, torch.tensor([127.0, -127.0])])
+    out_x = row.repeat(2, 16, 4).to(torch.bfloat16).to(cuda)
+    assert out_x.shape == (2, 16, 1020)
+    for x in (out_x, torch.nn.functional.pad(out_x, (0, 4))):
+        x = x.contiguous()
+        want_q, want_scale = ref.quantize_int8(x)
+        q, scale = ds.quant_stream(x)
+        assert torch.equal(q, want_q) and torch.equal(scale, want_scale)
+        assert torch.equal(ds.duplex_kv_stream(want_q, want_scale, x)[1],
+                           want_q)
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -96,7 +114,8 @@ def test_engine_token_exact_on_the_card(cuda):
 
 @pytest.mark.parametrize("shape", [(4, 3, 16, 64), (1, 1, 8, 128),
                                    (8, 5, 32, 32), (4, 2, 16, 11520),
-                                   (12, 3, 16, 1001)])
+                                   (4, 8, 16, 11520), (4, 32, 16, 11520),
+                                   (12, 3, 16, 1001), (3, 4, 16, 1001)])
 def test_l2_distance_matches_plain_version(cuda, shape):
     Q, N, T, D = shape
     g = torch.Generator().manual_seed(sum(shape))
@@ -213,6 +232,35 @@ def test_flash_attention_edges_of_the_tensor_core_tiles(cuda, shape, mask):
     assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
     torch.testing.assert_close(got, ref.attention(q, k, v, **mask),
                                atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,mask", [
+    # stablelm-3b's heads (hd 80), a ragged S and a prefix past a q tile
+    ((1, 256, 4, 4, 80), {}),
+    ((2, 200, 4, 2, 80), {"prefix_len": 96}),
+    # kimi-k2's (hd 112, 8 q heads on a kv head), a window and ragged S
+    ((1, 256, 8, 1, 112), {}),
+    ((1, 200, 4, 1, 112), {"window": 40, "prefix_len": 70}),
+])
+def test_flash_attention_at_head_dims_80_and_112(cuda, shape, mask, dtype):
+    """Both bodies at the head dims whose rows are not a whole number of
+    64 elements: the tensor-core body's padded tile rows and the f32
+    body's partial last pass over the columns, against ``ref.attention``
+    at the reference's tolerance for the dtype."""
+    B, S, H, KV, hd = shape
+    g = torch.Generator().manual_seed(S + hd + H)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g).to(dtype).to(cuda)
+               for n in (H, KV, KV))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got, ref.attention(q, k, v, **mask),
+                               atol=tol, rtol=tol)
 
 
 def test_flash_wrapper_rejects_bad_inputs(cuda):
