@@ -16,15 +16,22 @@ weights), the full-sequence forward of three models and the serving of
 rwkv6-7b, each with the launch counters set to 0 just before it and
 read just after:
 
-  * the main path: LLM decode through the duplex-paged KV pool, every
-    request token for token against the port's static-batch
-    ``reference_decode``; it must launch the three duplex-stream kernels;
+  * the main path: LLM decode through the duplex-paged KV pool, the
+    engine replaying CUDA graphs of its steps, every request token for
+    token against the port's static-batch ``reference_decode``; it must
+    launch the three duplex-stream kernels. The same requests are then
+    served with the eager megastep and with the graphs in turns (eager,
+    graphs, graphs, eager; ``megastep_turns``), each run with the main
+    run's tokens, launches and stats, and one more run of each is
+    profiled (``profile_serving``: busy share, device operations and
+    wall ms per decode step, by mode);
   * the tenant path: the same decode co-served with a KV-store tenant and
     a vector-search tenant that share the pool, the paging transaction and
     the admission queue; LLM tokens exact, tenant data checked against
     its seeds and a brute-force scan, the withdrawn scope
     (``/serve/redis/read_heavy``) never fused, and all four kernels
-    (``l2_distance`` too) launched;
+    (``l2_distance`` too) launched; then the eager megastep on the same
+    requests, which must serve and page the same;
   * the forward path: ``forward`` / ``loss_fn`` / ``prefill`` /
     ``make_prefill_step`` of smollm-135m FULL (B=4, S=2048) and
     paligemma-3b FULL (18 layers, hd 256; B=2, 256 stub patch embeddings
@@ -38,8 +45,12 @@ read just after:
     launch the ``wkv6`` kernel once per layer and agree with the plain
     forward (logits gated in f32, against a control fault);
   * the RWKV serving path: rwkv6-7b FULL through ``ServeEngine`` with
-    paging gated off by its recurrent cache, every request token for
-    token against ``reference_decode``.
+    paging gated off by its recurrent cache, on the step graphs, every
+    request token for token against ``reference_decode``, then with the
+    eager megastep, which must serve the same.
+
+Each serving path prints its engine's graph count (``graphs <path>:``)
+and capture seconds (``graph_capture_s <path>:``) on lines of their own.
 
 The last line of its output is a JSON
 object ``{"ok": true, "device": {...}}``; the line before it is the
@@ -61,7 +72,6 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
-from typing import Callable
 
 import numpy as np
 import torch
@@ -88,6 +98,16 @@ TENANT_SERVE = dict(max_batch=4, cache_len=256, block_tokens=16,
 TENANT_LLM_REQUESTS, TENANT_GEN, TENANT_STEPS = 8, 32, 48
 
 STREAMS = ("duplex_kv_stream", "quant_stream", "dequant_stream")
+# the shape each serving kernel is handed most often on its path (the
+# paging schedule is host-deterministic; l2_distance as Q,N,T,D). The
+# kernel rows are measured at these before any CUDA graph is captured:
+# after the serving paths' graphs, the profiler recorded one profile of
+# a ctypes kernel and then nothing (PERF.md). main() fails if
+# a path's most common shape is another.
+PATH_SHAPES = {"duplex_kv_stream": (4, 16, 11520),
+               "quant_stream": (1, 16, 11520),
+               "dequant_stream": (4, 16, 11520),
+               "l2_distance": (4, 2, 16, 11520)}
 
 # what each kernel replaces in the JAX package (the pallas_call line)
 REPLACES = {
@@ -182,14 +202,13 @@ LOGITS_ATOL = 0.25
 RWKV_LOGITS_ATOL = 5e-3
 # profiler device time against CUDA-event stream time (measure_flash)
 FLASH_EVENT_SHARE = 0.10
-# rounds of each timing that measure_flash and measure_wkv6 hold against
-# each other, of which the median is kept: one round of one run put the
-# profiler's flash time at hd 112 14 % above the CUDA events', and one
-# profile of SDPA came back at half its time (PERF.md)
+# rounds of the paired timings (paired_profile) that measure_flash and
+# measure_wkv6 take, of which the median is kept: one profile of SDPA came
+# back at half its time (PERF.md)
 TIMING_ROUNDS = 3
 # clock cycles of the spin kernel that holds the stream while timed calls
-# queue behind it (cuda_ms(held=True)): ~25 ms, longer than the host takes
-# to queue any timed run
+# queue behind it (paired_profile): ~25 ms, longer than the host takes to
+# queue any timed run
 HOLD_CYCLES = 50_000_000
 # wkv6 against ref.wkv6 on the card, at the reference's atol = rtol = 1e-4
 # (tests/test_kernels.py:107): (B, S, H, hs, draw w and u as the model
@@ -273,19 +292,14 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5,
-            held: bool = False) -> float:
-    """Mean ms per call of ``fn`` by CUDA events over back-to-back calls.
-    ``held``: a spin kernel holds the stream while the calls are queued,
-    so the events time the card running them back to back and not the
-    host's launch rate (a call shorter than its launch cost)."""
+def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean ms per call of ``fn`` by CUDA events over back-to-back calls
+    from the host, launch cost included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    if held:
-        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -294,14 +308,21 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5,
     return start.elapsed_time(end) / iters
 
 
-def _profile(fn, iters: int) -> tuple[Counter, Counter]:
+def _profile(fn, iters: int,
+             held: bool = False) -> tuple[Counter, Counter, float | None]:
     """One profile of ``iters`` calls of ``fn``: per kind of device
     operation (kernel, copy or memset; host-side runtime calls are left
     out), its count and device ns. Reads the raw trace events:
     ``key_averages()`` takes minutes over the million operations of a
-    serving run."""
+    serving run. ``held``: the calls are also timed by CUDA events in
+    the same window, queued behind a spin kernel that holds the stream,
+    so the events time the card running them back to back and not the
+    host's launch rate, and both clocks time the same runs of the calls;
+    the third value is that stream ms per call (else None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         # late in a process the profiler has been seen to lose the first
         # few device operations of a window (PERF.md): open it with spin
@@ -309,8 +330,13 @@ def _profile(fn, iters: int) -> tuple[Counter, Counter]:
         for _ in range(PROFILE_LEAD):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+        if held:
+            torch.cuda._sleep(HOLD_CYCLES)
+            start.record()
         for _ in range(iters):
             fn()
+        if held:
+            end.record()
         torch.cuda.synchronize()
     count, ns = Counter(), Counter()
     for e in prof.profiler.kineto_results.events():
@@ -318,13 +344,12 @@ def _profile(fn, iters: int) -> tuple[Counter, Counter]:
                 and "spin_kernel" not in e.name():
             count[e.name()] += 1
             ns[e.name()] += e.duration_ns()
-    return count, ns
+    return count, ns, start.elapsed_time(end) / iters if held else None
 
 
-def device_events(fn, iters: int = 20, warmup: int = 1,
-                  per_call: dict | None = None) -> list:
-    """The work the profiler saw run on the card over ``iters`` calls of
-    ``fn``, as (name, count, device µs) per kind of device operation.
+def _whole_profile(fn, iters: int, warmup: int, per_call: dict | None,
+                   held: bool) -> tuple[Counter, Counter, float | None]:
+    """A profile of ``iters`` calls of ``fn`` taken as measured (``_profile``).
 
     The profiler has been seen to drop device events (PERF.md), so
     a profile is taken as measured only when every kind of operation in
@@ -337,19 +362,28 @@ def device_events(fn, iters: int = 20, warmup: int = 1,
     torch.cuda.synchronize()
     kept, seen = [], []
     for _ in range(PROFILE_TRIES):
-        count, ns = _profile(fn, iters)
+        count, ns, stream_ms = _profile(fn, iters, held)
         seen.append(sum(count.values()))
         whole = bool(count) and all(n % iters == 0 for n in count.values())
         named = all(sum(n for k, n in count.items() if sub in k)
                     == want * iters for sub, want in (per_call or {}).items())
         if whole and named and count in kept:
-            return [(k, count[k], ns[k] / 1e3) for k in count]
+            return count, ns, stream_ms
         if whole and named:
             kept.append(count)
     fail(f"the profiler did not see the same whole calls twice in "
          f"{PROFILE_TRIES} "
          f"profiles of {iters} calls (operations seen: {seen}; last: "
          f"{dict(count)}, per call wanted {per_call})")
+
+
+def device_events(fn, iters: int = 20, warmup: int = 1,
+                  per_call: dict | None = None) -> list:
+    """The work the profiler saw run on the card over ``iters`` calls of
+    ``fn``, as (name, count, device µs) per kind of device operation
+    (``_whole_profile``)."""
+    count, ns, _ = _whole_profile(fn, iters, warmup, per_call, held=False)
+    return [(k, count[k], ns[k] / 1e3) for k in count]
 
 
 def median(timer, *args, **kwargs):
@@ -365,6 +399,21 @@ def device_profile(fn, iters: int = 20, warmup: int = 1,
     rows = device_events(fn, iters, warmup, per_call)
     return (sum(us for _, _, us in rows) / 1e3 / iters,
             sum(n for _, n, _ in rows) / iters)
+
+
+def paired_profile(fn, iters: int, warmup: int = 1,
+                   per_call: dict | None = None) -> tuple[float, float, float]:
+    """Per call of ``fn``: device ms by the profiler, the count of device
+    operations, and stream ms by CUDA events over the same calls in the
+    same window, queued behind a held stream (``_profile(held=True)``).
+    The two times come from one run of the calls, so a change of the
+    card's speed between two timings cannot part them: one run read wkv6
+    at 0.470 ms by the profiler against 0.600 ms by events taken after
+    it (PERF.md)."""
+    count, ns, stream_ms = _whole_profile(fn, iters, warmup, per_call,
+                                          held=True)
+    return (sum(ns.values()) / 1e6 / iters, sum(count.values()) / iters,
+            stream_ms)
 
 
 def floor_source() -> Path:
@@ -707,9 +756,9 @@ def measure_flash(shape, mask: dict) -> dict:
     kernel's f32 body).
 
     The times are checked, not taken on trust (each the median
-    of TIMING_ROUNDS): the kernel must be the one
+    of TIMING_ROUNDS ``paired_profile``s): the kernel must be the one
     device operation of its call, and its device time must agree with
-    CUDA events over calls queued behind a held stream within
+    CUDA events over the same calls queued behind a held stream within
     FLASH_EVENT_SHARE (``call_ms`` records back-to-back calls from the
     host, launch cost included, for comparison); the plain version
     and SDPA must agree with ``ref.attention`` within the reference's
@@ -733,16 +782,14 @@ def measure_flash(shape, mask: dict) -> dict:
     t_ops = flops / BF16_TC_OPS_PER_S * 1e3
     bound = max(t_bytes, t_ops)
     bound_f32 = max(t_bytes, flops / FP32_OPS_PER_S * 1e3)
-    ms = median(device_profile, fn, iters=10, per_call={"flash_kernel": 1})
-    plain_ms = median(device_profile, plain, iters=5)[0]
-    lib_ms = median(device_profile, lib, iters=10)[0]
-    if ms[1] != 1:
-        fail(f"flash_attention at {shape}: {ms[1]} device operations per "
-             f"call, want 1")
-    ms = ms[0]
-    ev = {"kernel": median(cuda_ms, fn, iters=10, held=True),
-          "plain": median(cuda_ms, plain, iters=5, held=True),
-          "SDPA": median(cuda_ms, lib, iters=10, held=True)}
+    ms, per_call, ev_kernel = median(paired_profile, fn, iters=10,
+                                     per_call={"flash_kernel": 1})
+    plain_ms, _, ev_plain = median(paired_profile, plain, iters=5)
+    lib_ms, _, ev_lib = median(paired_profile, lib, iters=10)
+    if per_call != 1:
+        fail(f"flash_attention at {shape}: {per_call} device operations "
+             f"per call, want 1")
+    ev = {"kernel": ev_kernel, "plain": ev_plain, "SDPA": ev_lib}
     call_ms = cuda_ms(fn, iters=10)
     print(f"flash_attention at {shape} {mask}: device ms (profiler) / "
           f"stream ms (CUDA events, stream held): kernel {ms:.4f} / "
@@ -967,9 +1014,9 @@ def measure_wkv6(shape) -> dict:
     (r*S and its sum, k*v, w*S, +kv per state element; the bonus dot
     sum_i r_i u_i k_i and v_j times it), against 67 TFLOP/s on CUDA
     cores. The kernel must be the one device operation of its call,
-    reach no less than its bound, and agree (each time the median of
-    TIMING_ROUNDS) with CUDA events over calls
-    queued behind a held stream within FLASH_EVENT_SHARE. No single
+    reach no less than its bound, and agree (the median of TIMING_ROUNDS
+    ``paired_profile``s) with CUDA events over the same calls queued
+    behind a held stream within FLASH_EVENT_SHARE. No single
     PyTorch call computes the WKV6 recurrence, so there is no library
     time."""
     from repro_torch.kernels import ref
@@ -985,12 +1032,11 @@ def measure_wkv6(shape) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_OPS_PER_S * 1e3
     bound = max(t_bytes, t_ops)
-    ms, per_call = median(device_profile, fn, iters=10,
-                          per_call={"wkv6_kernel": 1})
+    ms, per_call, ev = median(paired_profile, fn, iters=10,
+                              per_call={"wkv6_kernel": 1})
     # the plain version's 4096-step Python loop takes ~1.5 s of host time a
     # call; the comparison above was its warm-up
     plain_ms = device_profile(plain, iters=1, warmup=0)[0]
-    ev = median(cuda_ms, fn, iters=10, held=True)
     print(f"wkv6 at {shape}: device ms (profiler) {ms:.4f}, stream ms "
           f"(CUDA events, stream held) {ev:.4f}, plain {plain_ms:.4f}, "
           f"bound {bound:.4f}", flush=True)
@@ -1180,11 +1226,13 @@ def rwkv_f32_logits(params, cfg, tokens) -> dict:
 
 def rwkv_serve_phase(api, params) -> dict:
     """The RWKV serving path: rwkv6-7b FULL through ``ServeEngine`` with
-    paging gated off by the recurrent cache kind, every request token for
-    token against ``reference_decode`` in batches of the engine's
-    max_batch. Decode runs the one-step recurrence, not the kernel: its
-    wkv6 launches must be 0. Also profiles one ``decode_step`` at the
-    engine's batch (device ms and operations)."""
+    paging gated off by the recurrent cache kind, replaying the engine's
+    step graphs, every request token for token against
+    ``reference_decode`` in batches of the engine's max_batch; then once
+    more with the eager megastep, which must serve the same. Decode runs
+    the one-step recurrence, not the kernel: its wkv6 launches must be 0.
+    Also profiles one ``decode_step`` at the engine's batch (device ms
+    and operations)."""
     from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.serve import EngineConfig, ServeEngine
 
@@ -1217,6 +1265,19 @@ def rwkv_serve_phase(api, params) -> dict:
     if launches:
         fail(f"rwkv6-7b: decode launched wkv6 {launches} times (want 0)")
     tokens = sum(len(outs[r]) for r in rids)
+    graphs = graph_lines("rwkv", eng)
+    eager = ServeEngine(api, params, engine_cfg, _graphs=False)
+    erids = [eager.submit(prompts[i], RWKV_GEN,
+                          arrival_step=i * ARRIVAL_EVERY).rid
+             for i in range(RWKV_REQUESTS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eouts = eager.run()
+    torch.cuda.synchronize()
+    ewall = time.perf_counter() - t0
+    if any(not np.array_equal(eouts[a], outs[b])
+           for a, b in zip(erids, rids)) or eager.stats() != eng.stats():
+        fail("rwkv6-7b: the eager megastep served otherwise")
     # one decode_step at the engine's batch: device ms and operations
     B = RWKV_SERVE["max_batch"]
     cache = api.init_cache(B, RWKV_SERVE["cache_len"])
@@ -1229,7 +1290,12 @@ def rwkv_serve_phase(api, params) -> dict:
            "tokens_per_s": tokens / wall, "wkv6_launches": launches,
            "steps": ps["steps"], "host_dispatches": ps["host_dispatches"],
            "megasteps": ps["megasteps"], "host_blocked": ps["host_blocked"],
-           "decoder_ops_per_step": dec_ops, "decoder_ms_per_step": dec_ms}
+           "decoder_ops_per_step": dec_ops, "decoder_ms_per_step": dec_ms,
+           "decode_steps": eng.decode_steps,
+           "wall_ms_per_decode_step": wall * 1e3 / eng.decode_steps,
+           **graphs, "eager": {
+               "wall_ms": ewall * 1e3, "tokens_per_s": tokens / ewall,
+               "wall_ms_per_decode_step": ewall * 1e3 / eager.decode_steps}}
     print(f"served {RWKV_REQUESTS} requests of rwkv6-7b (full width) on "
           f"the card: {tokens} tokens in {wall:.3f} s "
           f"({tokens / wall:.1f} tok/s), all token-exact vs "
@@ -1264,11 +1330,25 @@ def check_decode(api, params, prompts, outs, rids, gen, batch,
                      f"reference decode has {ref[j][bad]}")
 
 
-def serve_full(api, params,
-               shapes_seen: dict) -> tuple[dict, Callable[[], None]]:
+def graph_lines(path: str, eng) -> dict:
+    """Check that a served engine replayed captured CUDA graphs of its
+    steps, and print their count and capture seconds, each on a line of
+    its own."""
+    g = eng.graphs
+    if g is None or not g.captured or eng.n_graphs != len(g.keys) or \
+            eng.n_graphs > eng.cfg.prefill_chunk + 1:
+        fail(f"{path}: the engine did not serve from its step graphs")
+    print(f"graphs {path}: {eng.n_graphs}", flush=True)
+    print(f"graph_capture_s {path}: {g.capture_s:.3f}", flush=True)
+    return {"graphs": eng.n_graphs, "capture_s": g.capture_s}
+
+
+def serve_full(api, params, shapes_seen: dict) -> tuple[dict, dict]:
     """The main path: smollm-135m FULL served through the paged pool on
-    the card. Returns the launch counts of this run alone, and a function
-    that profiles a repeat of the run (``profile_serving``)."""
+    the card, replaying the engine's step graphs. Returns the launch
+    counts of this run alone, and the run (a function that builds its
+    engine, its tokens, launches and stats) for ``megastep_turns`` and
+    ``profile_serving``."""
     from repro_torch.kernels import duplex_stream as ds
     from repro_torch.serve import EngineConfig, ServeEngine
 
@@ -1278,9 +1358,11 @@ def serve_full(api, params,
     engine_cfg = EngineConfig(**SERVE, max_queue=N_REQUESTS + 8,
                               device="cuda")
 
-    def main_run_engine(model=api) -> tuple:
-        """A fresh engine holding the main path's requests."""
-        eng = ServeEngine(model, params, engine_cfg)
+    def main_run_engine(model=api, graphs: bool = True) -> tuple:
+        """A fresh engine holding the main path's requests: replaying
+        its step graphs, or running the eager megastep."""
+        eng = ServeEngine(model, params, engine_cfg,
+                          _graphs=None if graphs else False)
         rids = [eng.submit(prompts[i], GEN,
                            arrival_step=i * ARRIVAL_EVERY).rid
                 for i in range(N_REQUESTS)]
@@ -1334,18 +1416,63 @@ def serve_full(api, params,
           f"duplex_speedup={ps['duplex_speedup']:.4f} launches={launches} "
           f"host_blocked={ps['host_blocked']} megasteps={ps['megasteps']}",
           flush=True)
-    return launches, functools.partial(
-        profile_serving, api, params, main_run_engine,
-        [outs[r] for r in rids], wall)
+    return launches, {"engine": main_run_engine,
+                      "tokens": [outs[r] for r in rids],
+                      "launches": launches, "stats": engine.stats(),
+                      **graph_lines("main", engine)}
+
+
+def served_run(main: dict, graphs: bool) -> tuple:
+    """One more run of the main path's requests on a fresh engine,
+    replaying its step graphs or running the eager megastep: the same
+    tokens, launches and stats as the main run, or fail. Returns the
+    engine and the wall seconds of ``run()``."""
+    from repro_torch.kernels import duplex_stream as ds
+    eng, rids = main["engine"](graphs=graphs)
+    torch.cuda.synchronize()
+    ds.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mode = "graphs" if graphs else "eager"
+    if any(not np.array_equal(outs[r], t)
+           for r, t in zip(rids, main["tokens"])):
+        fail(f"the main path's {mode} run served other tokens")
+    if dict(ds.LAUNCHES) != main["launches"] or \
+            eng.stats() != main["stats"]:
+        fail(f"the main path's {mode} run launched {dict(ds.LAUNCHES)} "
+             f"with stats {eng.stats()}; the main run {main['launches']}, "
+             f"{main['stats']}")
+    return eng, wall
+
+
+def megastep_turns(main: dict) -> dict:
+    """The eager megastep (the engine before its step graphs) and the
+    graphed one on the main path's requests, in turns (eager, graphs,
+    graphs, eager): wall seconds of each run, by mode."""
+    walls = {"eager": [], "graphs": []}
+    for graphs in (False, True, True, False):
+        eng, wall = served_run(main, graphs)
+        walls["graphs" if graphs else "eager"].append(wall)
+    tokens = sum(len(t) for t in main["tokens"])
+    out = {mode: {"wall_s": w, "tokens_per_s": [tokens / x for x in w],
+                  "wall_ms_per_decode_step": [x * 1e3 / eng.decode_steps
+                                              for x in w]}
+           for mode, w in walls.items()}
+    out["decode_steps"] = eng.decode_steps
+    print(json.dumps({"megastep_turns": out}), flush=True)
+    return walls
 
 
 def serve_tenants(api, params, l2_shapes: Counter) -> dict:
     """The tenant path: smollm-135m FULL decode co-served with a KV-store
     tenant (two sequential streams, one read-heavy stream over a preloaded
     32-block store) and a vector-search tenant (one 4-query walk over a
-    16-block dataset) in one oversubscribed pool. Run once under
-    ``torch.cuda.set_sync_debug_mode("warn")``; returns the launch counts
-    of this run alone."""
+    16-block dataset) in one oversubscribed pool, replaying the engine's
+    step graphs. Run once under ``torch.cuda.set_sync_debug_mode("warn")``,
+    then once more with the eager megastep, which must serve the same;
+    returns the launch counts of the graphed run alone."""
     import traceback
     import warnings
 
@@ -1357,21 +1484,29 @@ def serve_tenants(api, params, l2_shapes: Counter) -> dict:
 
     prompts = np.random.default_rng(2).integers(
         0, api.cfg.vocab, (TENANT_LLM_REQUESTS, PROMPT_LEN)).astype(np.int32)
-    eng = ServeEngine(api, params, EngineConfig(
-        **TENANT_SERVE, max_queue=TENANT_LLM_REQUESTS + 8, device="cuda"))
-    kv = eng.add_tenant(KVStoreTenant(n_slots=3, ops_per_step=2,
-                                      store_blocks=32))
-    kv.preload(32)
-    vec = eng.add_tenant(VectorSearchTenant(
-        n_slots=1, n_queries=4, visits_per_step=2, data_blocks=16,
-        load_per_step=1, result_every=4))
-    rids = [eng.submit(prompts[i], TENANT_GEN,
-                       arrival_step=i * ARRIVAL_EVERY).rid
-            for i in range(TENANT_LLM_REQUESTS)]
-    treqs = [kv.submit("sequential", n_steps=TENANT_STEPS, phase="read"),
-             kv.submit("sequential", n_steps=TENANT_STEPS, phase="write"),
-             kv.submit("read_heavy", n_steps=TENANT_STEPS),
-             vec.submit(n_steps=TENANT_STEPS)]
+
+    def tenant_engine(graphs: bool) -> tuple:
+        eng = ServeEngine(api, params, EngineConfig(
+            **TENANT_SERVE, max_queue=TENANT_LLM_REQUESTS + 8,
+            device="cuda"), _graphs=None if graphs else False)
+        kv = eng.add_tenant(KVStoreTenant(n_slots=3, ops_per_step=2,
+                                          store_blocks=32))
+        kv.preload(32)
+        vec = eng.add_tenant(VectorSearchTenant(
+            n_slots=1, n_queries=4, visits_per_step=2, data_blocks=16,
+            load_per_step=1, result_every=4))
+        rids = [eng.submit(prompts[i], TENANT_GEN,
+                           arrival_step=i * ARRIVAL_EVERY).rid
+                for i in range(TENANT_LLM_REQUESTS)]
+        treqs = [kv.submit("sequential", n_steps=TENANT_STEPS,
+                           phase="read"),
+                 kv.submit("sequential", n_steps=TENANT_STEPS,
+                           phase="write"),
+                 kv.submit("read_heavy", n_steps=TENANT_STEPS),
+                 vec.submit(n_steps=TENANT_STEPS)]
+        return eng, kv, vec, rids, treqs
+
+    eng, kv, vec, rids, treqs = tenant_engine(graphs=True)
 
     real = vd.l2_distance
 
@@ -1488,30 +1623,48 @@ def serve_tenants(api, params, l2_shapes: Counter) -> dict:
           f"(the watch alone: {watch_alone}) "
           f"steps={ps['steps']} megasteps={ps['megasteps']} "
           f"host_blocked={ps['host_blocked']}", flush=True)
+    out = {"graphs": {"wall_s": wall, "tokens_per_s": tokens / wall,
+                      "wall_ms_per_decode_step":
+                      wall * 1e3 / eng.decode_steps,
+                      **graph_lines("tenant", eng)}}
+
+    # the eager megastep on the same requests: the same tokens, tenant
+    # work, paging and launches
+    eager, ekv, evec, erids, _ = tenant_engine(graphs=False)
+    torch.cuda.synchronize()
+    ds.reset_launches()
+    vd.reset_launches()
+    t0 = time.perf_counter()
+    eouts = eager.run()
+    torch.cuda.synchronize()
+    ewall = time.perf_counter() - t0
+    if any(not np.array_equal(eouts[a], outs[b])
+           for a, b in zip(erids, rids)):
+        fail("the tenant path's eager run served other tokens")
+    if {**ds.LAUNCHES, **vd.LAUNCHES} != launches or \
+            eager.paging_stats() != ps or \
+            (ekv.ops_done, evec.queries_done) != (kv.ops_done,
+                                                  vec.queries_done):
+        fail("the tenant path's eager run paged or served otherwise")
+    out["eager"] = {"wall_s": ewall, "tokens_per_s": tokens / ewall,
+                    "wall_ms_per_decode_step":
+                    ewall * 1e3 / eager.decode_steps}
+    print(json.dumps({"tenant_serving": out}), flush=True)
     return launches
 
 
-def profile_serving(api, params, main_run_engine, main_tokens,
-                    wall_s) -> None:
-    """How busy the card is on the main path: the profiler's device time
-    over a repeat of the main run (same requests, same paging), against
-    the host wall clock of the unprofiled main run. Also splits the
-    device operations between the decoder and the rest (paging, engine
-    bookkeeping) by profiling one ``decode_step`` at the engine's batch."""
-    decode_calls = [0]
-
-    def counted_decode(*a):
-        decode_calls[0] += 1
-        return api.decode_step(*a)
-
-    repeat_tokens = []
-
-    def repeat():
-        eng, rids = main_run_engine(api._replace(decode_step=counted_decode))
-        got = eng.run()
-        repeat_tokens.extend(got[r] for r in rids)
-
-    # one decode_step first: after the repeat's million-operation trace the
+def profile_serving(api, params, main: dict, walls: dict) -> None:
+    """How busy the card is on the main path, with the eager megastep and
+    with the step graphs: the profiler's device time over one more run
+    of the main path's requests in each mode, against the host wall clock
+    of that mode's unprofiled runs (``megastep_turns``; their mean). The
+    decode steps are the engine's count of the micro-steps it ran (each
+    a ``decode_step``); a wrapped ``decode_step`` must count as many in
+    the eager run and none in the graphed one (its graphs were captured
+    before the profile). Also splits the device operations between the
+    decoder and the rest (paging, engine bookkeeping) by profiling one
+    ``decode_step`` at the engine's batch."""
+    # one decode_step first: after a run's million-operation trace the
     # profiler has been seen to drop events of a later profile in the same
     # process (PERF.md); five calls, as for rwkv6-7b's step: windows of 20
     # (57,840 operations) came back short of a few to 342 operations in
@@ -1522,34 +1675,51 @@ def profile_serving(api, params, main_run_engine, main_tokens,
     pos = torch.full((B,), PROMPT_LEN, dtype=torch.int32, device="cuda")
     dec_ms, dec_ops = device_profile(
         lambda: api.decode_step(params, cache, toks, pos), iters=5)
-    t0 = time.perf_counter()
-    count, ns = _profile(repeat, iters=1)
-    profiled_s = time.perf_counter() - t0
-    if not count:
-        fail("the profiler recorded no device time in the main run's repeat")
-    rows = [(k, count[k], ns[k] / 1e3) for k in count]
-    if len(repeat_tokens) != len(main_tokens) or any(
-            not np.array_equal(a, b)
-            for a, b in zip(repeat_tokens, main_tokens)):
-        fail("the profiled repeat of the main run served other tokens")
-    n_decode = decode_calls[0]
-    busy_ms = sum(us for _, _, us in rows) / 1e3
-    ops = sum(n for _, n, _ in rows)
-    stream_ms = sum(us for k, _, us in rows
-                    if "duplex_kernel" in k or "quant_kernel" in k) / 1e3
+    out = {"requests": N_REQUESTS, "prompt": PROMPT_LEN, "gen": GEN,
+           "decoder_ops_per_step": dec_ops, "decoder_ms_per_step": dec_ms}
+    for mode in ("eager", "graphs"):
+        calls = [0]
 
-    wall_ms = wall_s * 1e3
-    print(json.dumps({"serving_profile": {
-        "requests": N_REQUESTS, "prompt": PROMPT_LEN, "gen": GEN,
-        "wall_ms": wall_ms, "profiled_wall_ms": profiled_s * 1e3,
-        "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
-        "decode_steps": n_decode, "device_ops": ops,
-        "device_ops_per_decode_step": ops / n_decode,
-        "wall_ms_per_decode_step": wall_ms / n_decode,
-        "decoder_ops_per_step": dec_ops, "decoder_ms_per_step": dec_ms,
-        "decoder_share_of_ops": n_decode * dec_ops / ops,
-        "decoder_share_of_device_ms": n_decode * dec_ms / busy_ms,
-        "stream_kernels_ms": stream_ms}}), flush=True)
+        def counted_decode(*a):
+            calls[0] += 1
+            return api.decode_step(*a)
+
+        eng, rids = main["engine"](api._replace(decode_step=counted_decode),
+                                   graphs=mode == "graphs")
+        built = calls[0]
+        got = {}
+        t0 = time.perf_counter()
+        count, ns, _ = _profile(lambda: got.update(eng.run()), iters=1)
+        profiled_s = time.perf_counter() - t0
+        if not count:
+            fail(f"the profiler recorded no device time in the main "
+                 f"path's {mode} run")
+        if any(not np.array_equal(got[r], t)
+               for r, t in zip(rids, main["tokens"])):
+            fail(f"the profiled {mode} run of the main path served other "
+                 f"tokens")
+        n_decode = eng.decode_steps
+        ran = calls[0] - built
+        if ran != (0 if mode == "graphs" else n_decode):
+            fail(f"the {mode} run called decode_step {ran} times for "
+                 f"{n_decode} decode steps")
+        busy_ms = sum(ns.values()) / 1e6
+        ops = sum(count.values())
+        stream_ms = sum(n for k, n in ns.items()
+                        if "duplex_kernel" in k or "quant_kernel" in k) / 1e6
+        wall_ms = float(np.mean(walls[mode])) * 1e3
+        out[mode] = {
+            "wall_ms": wall_ms, "profiled_wall_ms": profiled_s * 1e3,
+            "tokens_per_s": sum(len(t) for t in main["tokens"])
+            / wall_ms * 1e3,
+            "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "decode_steps": n_decode, "device_ops": ops,
+            "device_ops_per_decode_step": ops / n_decode,
+            "wall_ms_per_decode_step": wall_ms / n_decode,
+            "decoder_share_of_ops": n_decode * dec_ops / ops,
+            "decoder_share_of_device_ms": n_decode * dec_ms / busy_ms,
+            "stream_kernels_ms": stream_ms}
+    print(json.dumps({"serving_profile": out}), flush=True)
 
 
 def build_all() -> None:
@@ -1647,6 +1817,8 @@ def main() -> int:
                                    "call_ms", "bound_ms")}
               for row in (measure_l2((4, n, 16, D)) for n in (2, 8, 32))]
     print(json.dumps({"kernel_sweep": sweep}), flush=True)
+    kernels = [measure(name, PATH_SHAPES[name]) for name in STREAMS]
+    kernels.append(measure_l2(PATH_SHAPES["l2_distance"]))
     mark("stream_and_l2_kernels")
     check_flash()
     # device_events takes a profile as measured only when two agree: the
@@ -1666,8 +1838,10 @@ def main() -> int:
 
     api, params = full_model()
     shapes_seen: dict = {}
-    launches, profile_serving_run = serve_full(api, params, shapes_seen)
+    launches, main_run = serve_full(api, params, shapes_seen)
     mark("serve")
+    walls = megastep_turns(main_run)
+    mark("megastep_turns")
     l2_shapes: Counter = Counter()
     tenant_launches = serve_tenants(api, params, l2_shapes)
     mark("tenants")
@@ -1683,15 +1857,14 @@ def main() -> int:
     del rwkv_api, rwkv_params
     torch.cuda.empty_cache()
 
-    kernels = []
-    for name in STREAMS:
-        shape = shapes_seen[name].most_common(1)[0][0]
-        row = measure(name, shape)
-        row["launches"] = launches[name]
-        kernels.append(row)
-    row = measure_l2(l2_shapes.most_common(1)[0][0])
-    row["launches"] = tenant_launches["l2_distance"]
-    kernels.append(row)
+    seen = {name: shapes_seen[name].most_common(1)[0][0] for name in STREAMS}
+    seen["l2_distance"] = l2_shapes.most_common(1)[0][0]
+    if seen != PATH_SHAPES:
+        fail(f"the serving paths handed the kernels {seen} most often; "
+             f"their rows were measured at {PATH_SHAPES}")
+    for row in kernels:     # the main path's runs, l2 the tenant path's
+        row["launches"] = (tenant_launches if row["name"] == "l2_distance"
+                           else launches)[row["name"]]
     # measured at the smollm-135m prefill shape; launched per forward
     flash_row["launches"] = forward["smollm-135m"]["launches"]
     flash_row["launches_paligemma"] = forward["paligemma-3b"]["launches"]
@@ -1704,7 +1877,7 @@ def main() -> int:
     # last: after a trace of a million operations, the profiler has been
     # seen to record nothing of a later short profile of a kernel
     mark("kernel_rows")
-    profile_serving_run()
+    profile_serving(api, params, main_run, walls)
     mark("serving_profile")
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": time.perf_counter() - start}), flush=True)

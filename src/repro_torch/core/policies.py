@@ -1,9 +1,12 @@
 """Admission policies (CXLAimPod §4.4, Algorithm 1) on CPU tensors.
 
-Port of the serving subset of ``repro/core/policies.py``: the
-``init / schedule / update`` policy protocol, the direction-oblivious
-``cfs`` baseline and the hint-seeded time-series policy ``hinted`` (the
-engine's default), plus the megastep feedback helpers
+Port of ``repro/core/policies.py``: the ``init / schedule / update``
+policy protocol and all six policies of its registry — ``cfs`` (fair
+share, direction-oblivious), ``ddr_batching`` (serve the majority
+direction), ``round_robin`` (rotate slot ownership), ``threshold``
+(static duplex-aware greedy mix), ``timeseries`` (Algorithm 1) and
+``hinted`` (timeseries seeded by cgroup hints; the engine's default) —
+plus ``migration_volume`` and the megastep feedback helpers
 (``seed_read_fraction``, ``stack_feedbacks``, ``fold_feedback``).
 
 A policy's state is a handful of small float32 vectors, one entry per
@@ -116,6 +119,67 @@ CFS = Policy("cfs", _cfs_init, _cfs_schedule, _cfs_update)
 
 
 # ---------------------------------------------------------------------------
+# ddr_batching — group same-direction work, minimize switches.
+# ---------------------------------------------------------------------------
+
+class _BatchState(NamedTuple):
+    direction: torch.Tensor   # int32, 0 = favor reads, 1 = favor writes
+    residual: torch.Tensor    # float32, batch budget remaining
+
+
+def _batch_init(params: PolicyParams, n_streams: int):
+    return _BatchState(torch.tensor(0, dtype=torch.int32),
+                       torch.tensor(0.0, dtype=F32))
+
+
+def _batch_schedule(params: PolicyParams, state: _BatchState, obs: Obs):
+    tot_r = torch.sum(obs.backlog_read)
+    tot_w = torch.sum(obs.backlog_write)
+    # switch direction only when the current one is (nearly) drained.
+    cur_dir_bytes = torch.where(state.direction == 0, tot_r, tot_w)
+    switch = cur_dir_bytes <= 0.0
+    reads, writes = (torch.tensor(d, dtype=torch.int32) for d in (0, 1))
+    direction = torch.where(switch, torch.where(tot_r >= tot_w, reads, writes),
+                            state.direction)
+    backlog = torch.where(direction == 0, obs.backlog_read,
+                          obs.backlog_write)
+    w = _normalize_slots((backlog > 0.0).to(F32), params.n_slots)
+    # if nothing matches the favored direction, fall back to fair share.
+    fallback = _normalize_slots(_active(obs).to(F32), params.n_slots)
+    w = torch.where(torch.sum(w) > 0.0, w, fallback)
+    return _BatchState(direction, state.residual), w
+
+
+def _batch_update(params: PolicyParams, state: _BatchState, fb: Feedback):
+    return state
+
+
+DDR_BATCHING = Policy("ddr_batching", _batch_init, _batch_schedule,
+                      _batch_update)
+
+
+# ---------------------------------------------------------------------------
+# round_robin — rotate slots; direction-oblivious. The state is a bare
+# int32 scalar (the rotation offset), not a tuple.
+# ---------------------------------------------------------------------------
+
+def _rr_init(params: PolicyParams, n_streams: int):
+    return torch.tensor(0, dtype=torch.int32)
+
+
+def _rr_schedule(params: PolicyParams, state, obs: Obs):
+    n = obs.backlog_read.shape[0]
+    k = max(1, int(params.n_slots))
+    # ``%`` on a tensor floors like ``jnp``'s: a negative difference wraps
+    idx = (torch.arange(n, dtype=torch.int32) - state) % n
+    raw = (idx < k).to(F32) * _active(obs).to(F32)
+    return (state + k) % n, _normalize_slots(raw, params.n_slots)
+
+
+RR = Policy("round_robin", _rr_init, _rr_schedule, lambda p, s, f: s)
+
+
+# ---------------------------------------------------------------------------
 # duplex-aware slot quotas (duplex_select_cpu).
 # ---------------------------------------------------------------------------
 
@@ -153,8 +217,26 @@ def _quota_weights(rf, urgency, active, opt_in, n_slots: float, opt_r):
     return _normalize_slots(sel.to(F32), n_slots)
 
 
+def _thr_schedule(params: PolicyParams, state, obs: Obs):
+    """threshold — the static duplex-aware greedy mix toward ``opt_r``."""
+    active = _active(obs).to(F32)
+    head_tot = obs.head_read + obs.head_write
+    agg = torch.sum(head_tot * active)
+    work_mix = torch.where(agg > 0,
+                           torch.sum(obs.head_read * active)
+                           / torch.clamp(agg, min=1e-9), obs.opt_r)
+    target = 0.5 * work_mix + 0.5 * obs.opt_r
+    w_duplex = _quota_weights(obs.head_rf(), torch.ones_like(active), active,
+                              obs.hint_opt_in, params.n_slots, target)
+    w_fair = _normalize_slots(active, params.n_slots)
+    return state, torch.where(obs.duplex, w_duplex, w_fair)
+
+
+THRESHOLD = Policy("threshold", _cfs_init, _thr_schedule, _cfs_update)
+
+
 # ---------------------------------------------------------------------------
-# timeseries machinery (Algorithm 1), seeded by hints in ``hinted``.
+# timeseries machinery (Algorithm 1); seeded by hints in ``hinted``.
 # ---------------------------------------------------------------------------
 
 class TimeSeriesState(NamedTuple):
@@ -262,12 +344,38 @@ def _ts_phase34_dispatch(params: PolicyParams, state: TimeSeriesState,
     return _normalize_slots(w * active, params.n_slots)
 
 
+def _ts_schedule(params: PolicyParams, state: TimeSeriesState, obs: Obs):
+    """timeseries — Algorithm 1 with the measured forecast: the head of
+    queue's direction where work is queued, the EWMA trend otherwise;
+    a unidirectional aggregate primes the pipeline when oversubscribed
+    and withdraws the duplex intervention when not."""
+    state = _ts_phase1_update_window(params, state, obs)
+    oversub = _ts_phase2_detect_oversub(params, state, obs)
+    state = state._replace(oversub=oversub)
+    head = obs.head_read + obs.head_write
+    rf_forecast = torch.where(head > 0, obs.head_rf(), state.ewma_rf)
+    rate = torch.clamp(head + state.ewma_rate, min=1e-9)
+    global_mix = torch.sum(rf_forecast * rate) / torch.sum(rate)
+    unidir = (global_mix < params.unidir_cutoff) | \
+        (global_mix > 1.0 - params.unidir_cutoff)
+    frozen = torch.where(unidir, torch.ones_like(rf_forecast),
+                         torch.zeros_like(rf_forecast))
+    w_normal = _ts_phase34_dispatch(params, state, obs, rf_forecast,
+                                    frozen)
+    w_prime = _prime_weights(params, state, obs)
+    w = torch.where(unidir & state.oversub, w_prime, w_normal)
+    return state._replace(prev_w=w), w
+
+
 def _ts_update(params: PolicyParams, state: TimeSeriesState, fb: Feedback):
     served = fb.moved_read + fb.moved_write
     v = state.vruntime + served / torch.clamp(torch.sum(served) + 1e-9,
                                               min=1e-9)
     v = v - torch.min(v)
     return state._replace(vruntime=v)
+
+
+TIMESERIES = Policy("timeseries", _ts_init, _ts_schedule, _ts_update)
 
 
 # ---------------------------------------------------------------------------
@@ -300,7 +408,9 @@ def _hint_schedule(params: PolicyParams, state: TimeSeriesState, obs: Obs):
 
 HINTED = Policy("hinted", _ts_init, _hint_schedule, _ts_update)
 
-REGISTRY: dict[str, Policy] = {p.name: p for p in (CFS, HINTED)}
+REGISTRY: dict[str, Policy] = {
+    p.name: p for p in (CFS, DDR_BATCHING, RR, THRESHOLD, TIMESERIES, HINTED)
+}
 
 
 def get_policy(name: str) -> Policy:
@@ -322,12 +432,20 @@ def seed_read_fraction(state: Any, slot: int, read_fraction: float) -> Any:
     return state
 
 
+def migration_volume(prev_w: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """L1 weight reallocation per step — the migration overhead proxy that
+    the simulator charges against channel capacity."""
+    return 0.5 * torch.sum(torch.abs(w - prev_w))
+
+
 def reset_slots(policy: Policy, params: PolicyParams, capacity: int,
                 state: Any, mask: torch.Tensor) -> Any:
     """Reinitialize per-slot policy state for the masked waiting slots:
     every leaf whose leading axis has ``capacity`` entries takes the
     fresh-init rows under ``mask`` (the reference's ``_policy_programs``
-    reset, leaf rule included)."""
+    reset, leaf rule included): a state that is not a tuple, such as
+    ``round_robin``'s int32 offset, has no per-slot leaf and is returned
+    unchanged."""
     if not isinstance(state, tuple) or not state:
         return state
     fresh = policy.init(params, capacity)

@@ -14,11 +14,15 @@
                  fused token micro-steps with on-device argmax feedback,
                  one packed readback per megastep, one merged paging
                  transaction and tenant compute per step, depth-2
-                 pipelined boundaries.
+                 pipelined boundaries;
+  StepGraphs   — on a CUDA device, the engine steps as CUDA graphs over the
+                 engine's static cache and slot state, one per count of
+                 active micro-steps, replayed once per inner step.
 """
 
 from repro_torch.serve.engine import (EngineConfig, EngineStallError,
                                       ServeEngine, reference_decode)
+from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.kv_pool import PagedKVPool
 from repro_torch.serve.queue import Request, RequestQueue, TrafficProfile
 from repro_torch.serve.workloads import (KVStoreTenant, VectorSearchTenant,
@@ -26,5 +30,5 @@ from repro_torch.serve.workloads import (KVStoreTenant, VectorSearchTenant,
 
 __all__ = ["EngineConfig", "EngineStallError", "KVStoreTenant",
            "PagedKVPool", "Request", "RequestQueue", "ServeEngine",
-           "TrafficProfile", "VectorSearchTenant", "WorkloadAPI",
+           "StepGraphs", "TrafficProfile", "VectorSearchTenant", "WorkloadAPI",
            "reference_decode"]

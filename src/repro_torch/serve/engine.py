@@ -33,13 +33,18 @@ any row: the reference skips a micro-step with no movers with a
 ``lax.cond``; the port runs exactly the micro-steps that have movers and
 never asks the device.
 
-Where the reference jits and donates, the port runs eagerly and updates
-in place: the dense cache is written by ``decode_step`` in place, a
-recurrent cache (RWKV6) gets the moving rows of ``decode_step``'s new
-leaves written into it in place (the reference's frozen-row keep), slot
-recycling rewrites cache rows in place, and the pool commits into its
-tier tensors in place. A recurrent cache has no token-indexed K/V, so
-paging is gated off for it, as in the reference.
+Where the reference jits and donates, the port updates in place: the
+dense cache is written by ``decode_step`` in place, a recurrent cache
+(RWKV6) gets the moving rows of ``decode_step``'s new leaves written into
+it in place (the reference's frozen-row keep), admission and slot
+recycling rewrite the slot state and cache rows in place, and the pool
+commits into its tier tensors in place. On a CUDA device the engine
+steps are CUDA graphs over those static tensors (``serve/graphs.py``, the
+counterpart of the reference's jitted program): a megastep is one replay
+per inner step, and the paging transactions, tenant compute, policy
+feedback and host planning run eagerly between replays. On the CPU the
+megastep runs ``_megastep_math`` eagerly. A recurrent cache has no
+token-indexed K/V, so paging is gated off for it, as in the reference.
 
 ``pipeline_depth = 2`` splits each megastep into plan / dispatch /
 reconcile and keeps one dispatched megastep's readback deferred while the
@@ -65,6 +70,7 @@ from repro_torch.core.hints import HintTree, default_serving_hints
 from repro_torch.core.telemetry import CaxRegistry
 from repro_torch.device import resolve_device, to_device
 from repro_torch.models.registry import ModelAPI
+from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.kv_pool import PagedKVPool
 from repro_torch.serve.queue import (DECODE, DONE, PREFILL, STATE_OF_CODE,
                                      Request, RequestQueue, S_DECODE, S_DONE,
@@ -227,30 +233,27 @@ def _admit_rows(dev, mask, prompts, prompt_len, max_new):
     }
 
 
-def _megastep_math(api: ModelAPI, n_micro: int, n_steps: int,
-                   block_tokens: int | None):
-    """The megastep: ``n_steps`` consecutive engine steps as one function
-    ``mega(params, cache, dev, micro) -> (dev, packed[, staged])``.
+def _pack(dev, toks):
+    """The (B, 3+K) int32 readback: state | consumed | n_gen | tok_0 ..
+    tok_{K-1}."""
+    return torch.cat(
+        [dev["state"][:, None], dev["consumed"][:, None],
+         dev["n_gen"][:, None], torch.stack(toks, dim=1)], dim=1)
 
-    ``cache`` is updated in place (a recurrent cache only in the rows that
-    move). ``micro[t]`` is the number of leading
-    micro-steps of inner step t that advance any row (from the host's
-    trajectories); the remaining micro-steps of the step have no movers
-    and change nothing, so they are not run. ``packed`` is the (B, 3+K)
-    int32 readback (state | consumed | n_gen | tok_0 .. tok_{K-1}): a row
-    emits at most one token per engine step and after an emitting
-    micro-step the feed token *is* the sample, so these are the complete
-    host-mirror delta. With ``block_tokens`` set, ``staged[t]`` holds the
-    blocks inner step t filled — fixed-width cursor arithmetic over the
-    pre-step write positions, ``max_fills`` candidate blocks per slot —
-    as (B*max_fills, block_tokens, kv_dims) bf16 (padding rows are
-    dropped by the pool's sentinel ids)."""
+
+def _engine_step_math(api: ModelAPI, n_micro: int, block_tokens: int | None):
+    """One engine step as ``step(params, cache, dev, active) -> (dev,
+    staged)``: the first ``active`` of its ``n_micro`` micro-steps (the
+    rest have no movers) and, with ``block_tokens`` set, the blocks the
+    step filled, else ``staged`` is None. ``cache`` is updated in place
+    (a recurrent cache only in the rows that move); ``dev`` is not
+    written, the new slot state is returned."""
     ring = api.cache_kind == "ring"
     n_micro = max(1, n_micro)
     extract = block_tokens is not None
     max_fills = -(-n_micro // block_tokens) if extract else 0
 
-    def engine_step(params, cache, dev, active: int):
+    def micro_steps(params, cache, dev, active: int):
         B = dev["state"].shape[0]
         P = dev["prompt"].shape[1]
         brange = torch.arange(B, device=dev["state"].device)
@@ -299,38 +302,69 @@ def _megastep_math(api: ModelAPI, n_micro: int, n_steps: int,
                        n_gen=n_gen)
         return dev
 
+    def step(params, cache, dev, active: int):
+        if not extract:
+            return micro_steps(params, cache, dev, active), None
+        fill_base = _written_of(dev) // block_tokens
+        dev = micro_steps(params, cache, dev, active)
+        # fixed-width cursor arithmetic over the pre-step write positions:
+        # row j of the slab is candidate block j % max_fills of slot
+        # j // max_fills
+        j = torch.arange(dev["state"].shape[0] * max_fills,
+                         device=fill_base.device)
+        slot_idx = j // max_fills
+        t0 = (fill_base[slot_idx] + j % max_fills) * block_tokens
+        return dev, _extract_blocks_math(cache["k"], cache["v"], slot_idx,
+                                         t0, block_tokens=block_tokens)
+
+    return step
+
+
+def _megastep_math(api: ModelAPI, n_micro: int, n_steps: int,
+                   block_tokens: int | None):
+    """The megastep: ``n_steps`` consecutive engine steps as one function
+    ``mega(params, cache, dev, micro) -> (dev, packed[, staged])``.
+
+    ``cache`` is updated in place (a recurrent cache only in the rows that
+    move). ``micro[t]`` is the number of leading
+    micro-steps of inner step t that advance any row (from the host's
+    trajectories); the remaining micro-steps of the step have no movers
+    and change nothing, so they are not run. ``packed`` is the (B, 3+K)
+    int32 readback (state | consumed | n_gen | tok_0 .. tok_{K-1}): a row
+    emits at most one token per engine step and after an emitting
+    micro-step the feed token *is* the sample, so these are the complete
+    host-mirror delta. With ``block_tokens`` set, ``staged[t]`` holds the
+    blocks inner step t filled — fixed-width cursor arithmetic over the
+    pre-step write positions, ``max_fills`` candidate blocks per slot —
+    as (B*max_fills, block_tokens, kv_dims) bf16 (padding rows are
+    dropped by the pool's sentinel ids)."""
+    step = _engine_step_math(api, n_micro, block_tokens)
+
     def mega(params, cache, dev, micro):
         toks, staged = [], []
         for t in range(n_steps):
-            fill_base = _written_of(dev) // (block_tokens or 1)
-            dev = engine_step(params, cache, dev, micro[t])
+            dev, st = step(params, cache, dev, micro[t])
             toks.append(dev["tok"])
-            if extract:
-                B = dev["state"].shape[0]
-                ar = torch.arange(max_fills, dtype=torch.int32,
-                                  device=fill_base.device)
-                slot_idx = torch.arange(
-                    B, device=fill_base.device).repeat_interleave(max_fills)
-                t0 = (fill_base.repeat_interleave(max_fills)
-                      + ar.repeat(B)) * block_tokens
-                staged.append(_extract_blocks_math(
-                    cache["k"], cache["v"], slot_idx, t0,
-                    block_tokens=block_tokens))
-        packed = torch.cat(
-            [dev["state"][:, None], dev["consumed"][:, None],
-             dev["n_gen"][:, None], torch.stack(toks, dim=1)], dim=1)
-        if extract:
-            return dev, packed, staged
-        return dev, packed
+            staged.append(st)
+        if block_tokens is not None:
+            return dev, _pack(dev, toks), staged
+        return dev, _pack(dev, toks)
 
     return mega
 
 
 class ServeEngine:
-    """Continuous-batching serving engine for one ``ModelAPI``."""
+    """Continuous-batching serving engine for one ``ModelAPI``.
+
+    ``_graphs`` is private: None (the default) replays CUDA graphs of the
+    engine steps on a CUDA device and runs the megastep eagerly on the
+    CPU; False runs the eager megastep on either (the on-card comparison
+    of the two); True on the CPU runs the graphs' static-buffer
+    bookkeeping with direct calls in place of replays (the CPU tests)."""
 
     def __init__(self, api: ModelAPI, params, cfg: EngineConfig,
-                 hints: HintTree | None = None):
+                 hints: HintTree | None = None, *,
+                 _graphs: bool | None = None):
         if cfg.megastep < 1:
             raise ValueError("megastep must be >= 1")
         if cfg.pipeline_depth < 1:
@@ -376,6 +410,18 @@ class ServeEngine:
                                   hints=self.hints,
                                   kv_bytes_per_token=kv_bytes)
         self._mega_fns: dict[int, object] = {}
+        # the engine steps as graphs over the static cache and slot state;
+        # None: the eager megastep (``_mega_fn``)
+        if _graphs is None:
+            _graphs = self.device.type == "cuda"
+        self.graphs = StepGraphs(
+            _engine_step_math(api, cfg.prefill_chunk,
+                              cfg.block_tokens if self.paged else None),
+            params, self.cache, self._dev, max(1, cfg.prefill_chunk),
+            extract=self.paged,
+            capture=self.device.type == "cuda") if _graphs else None
+        self.decode_steps = 0      # micro-steps run (decode_step calls of
+                                   # the eager megastep)
         self.step_count = 0
         self.host_dispatches = 0   # megastep-program dispatches
         self.megasteps = 0         # megastep boundaries
@@ -469,6 +515,21 @@ class ServeEngine:
                 self.api, self.cfg.prefill_chunk, n_steps, bt)
         return self._mega_fns[n_steps]
 
+    @property
+    def n_graphs(self) -> int:
+        """CUDA graphs this engine holds: at most prefill_chunk + 1."""
+        return len(self.graphs) if self.graphs is not None else 0
+
+    def _graph_megastep(self, micro: tuple):
+        """The megastep as one engine step a replay: (packed, staged), each
+        step's tokens and staged slab copied out before the next."""
+        toks, staged = [], []
+        for m in micro:
+            tok, st = self.graphs.step(m)
+            toks.append(tok)
+            staged.append(st)
+        return _pack(self._dev, toks), (staged if self.paged else None)
+
     def step(self) -> dict:
         """One engine step — the K=1 megastep."""
         return self.megastep(1)
@@ -528,14 +589,18 @@ class ServeEngine:
         now, k, live, traj = rec.now, rec.k, rec.live, rec.traj
         staged = None
         if live:
-            out = self._mega_fn(k)(self.params, self.cache, self._dev,
-                                   rec.micro)
-            if self.paged:
-                self._dev, packed, staged = out
+            if self.graphs is not None:
+                packed, staged = self._graph_megastep(rec.micro)
             else:
-                self._dev, packed = out
+                out = self._mega_fn(k)(self.params, self.cache, self._dev,
+                                       rec.micro)
+                if self.paged:
+                    self._dev, packed, staged = out
+                else:
+                    self._dev, packed = out
             rec.packed = _Readback(packed)
             self.host_dispatches += 1
+            self.decode_steps += sum(rec.micro)
 
         report = {"page_ins": 0, "page_outs": 0, "migrations": 0}
         feedbacks = []
@@ -900,10 +965,13 @@ class ServeEngine:
         rows = to_device(np.flatnonzero(mask).astype(np.int64), self.device)
         for key, leaf in self.cache.items():
             leaf[:, rows] = self._cache0[key][:, rows]
+        # the slot state in place too: the graphs read these tensors
         dev = self.device
-        self._dev = _admit_rows(self._dev, to_device(mask, dev),
-                                to_device(prompts, dev),
-                                to_device(plen, dev), to_device(mnew, dev))
+        new = _admit_rows(self._dev, to_device(mask, dev),
+                          to_device(prompts, dev), to_device(plen, dev),
+                          to_device(mnew, dev))
+        for key, leaf in self._dev.items():
+            leaf.copy_(new[key])
         return len(admitted)
 
     # -- batched KV paging (one transaction per inner step) -----------------

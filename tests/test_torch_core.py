@@ -1,8 +1,8 @@
 """Port's host-side core against the JAX package: channel presets and
 the scalar bandwidth curve, duplex/serial paging plans and their modelled
 microseconds (exactly equal), hint resolution, CAX attribution, and the
-``hinted``/``cfs`` admission policies (weights within rtol 1e-6, the same
-admission order)."""
+six admission policies of the registry (weights and state within rtol
+1e-6, the same admission order) and ``migration_volume``."""
 
 import dataclasses
 import functools
@@ -168,7 +168,17 @@ def _obs(rng, S, jax_side):
         **{k: torch.from_numpy(v) for k, v in arr.items()})
 
 
-@pytest.mark.parametrize("name", ["hinted", "cfs"])
+def _leaves(state):
+    """A policy state's leaves: a tuple's members, or the state itself
+    (``round_robin``'s bare int32 offset)."""
+    return list(state) if isinstance(state, tuple) else [state]
+
+
+def test_registry_equals_reference():
+    assert list(policies.REGISTRY) == list(jpolicies.REGISTRY)
+
+
+@pytest.mark.parametrize("name", list(jpolicies.REGISTRY))
 def test_policy_weights_equal_reference(name):
     S = 12
     jpol, tpol = jpolicies.get_policy(name), policies.get_policy(name)
@@ -199,12 +209,47 @@ def test_policy_weights_equal_reference(name):
         js = jfold(js, jpolicies.stack_feedbacks(jfb))
         ts = policies.fold_feedback(tpol, tparams, ts,
                                     policies.stack_feedbacks(tfb))
-    for jl, tl in zip(js, ts):
-        np.testing.assert_allclose(np.asarray(tl), np.asarray(jl),
+    jl, tl = _leaves(js), _leaves(ts)
+    assert len(tl) == len(jl)
+    for j, t in zip(jl, tl):
+        assert np.asarray(t).dtype == np.asarray(j).dtype
+        np.testing.assert_allclose(np.asarray(t), np.asarray(j),
                                    rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("policy", ["hinted", "cfs"])
+def test_round_robin_rotation_wraps_and_survives_slot_reset():
+    """round_robin's offset: ``arange - state`` goes negative and must
+    wrap as ``jnp``'s floored ``%`` does; the slot reset leaves the bare
+    scalar state as it is."""
+    S = 6
+    tpol, jpol = policies.get_policy("round_robin"), \
+        jpolicies.get_policy("round_robin")
+    tparams, jparams = policies.PolicyParams(), jpolicies.PolicyParams()
+    ts, js = tpol.init(tparams, S), jpol.init(jparams, S)
+    for step in range(5):
+        ts, tw = tpol.schedule(tparams, ts, _obs(
+            np.random.default_rng(step), S, False))
+        js, jw = jpol.schedule(jparams, js, _obs(
+            np.random.default_rng(step), S, True))
+        np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+        assert int(ts) == int(js) and ts.dtype == torch.int32
+    mask = torch.zeros(S, dtype=torch.bool)
+    mask[1] = True
+    assert policies.reset_slots(tpol, tparams, S, ts, mask) is ts
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_migration_volume_equals_reference(seed):
+    rng = np.random.default_rng(seed)
+    prev, w = rng.random((2, 12)).astype(np.float32)
+    got = policies.migration_volume(torch.from_numpy(prev),
+                                    torch.from_numpy(w))
+    want = jpolicies.migration_volume(jnp.asarray(prev), jnp.asarray(w))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("policy", list(jpolicies.REGISTRY))
 def test_queue_admission_order_equal_reference(policy):
     """Random requests through both waiting rooms: the same admissions
     at the same steps, in the same order."""

@@ -1,7 +1,9 @@
 """On-card tests of the port (marker ``cuda``): the CUDA kernels against
 their plain versions, the serving engine token-exact on the GPU, with
-and without tenants, the forward through the flash-attention kernel, and
-the RWKV6 forward through the wkv6 kernel.
+and without tenants, its CUDA graphs of the engine steps against the
+eager megastep (smollm-135m paged, the tenant mix, rwkv6-7b), the
+forward through the flash-attention kernel, and the RWKV6 forward
+through the wkv6 kernel.
 They skip where there is no CUDA device; on a machine with one, run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -348,3 +350,141 @@ def test_rwkv_forward_launches_wkv6_once_per_layer(cuda):
         lp, _ = W.forward(params, cfg, tokens, use_kernel=False)
     assert rs.LAUNCHES["wkv6"] == cfg.num_layers
     torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the engine steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _graph_case(case):
+    """(api, params, config, prompts, gen, tenants?) of one SMOKE case."""
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig
+    arch = "rwkv6-7b" if case == "rwkv6" else "smollm-135m"
+    api = registry.build(arch, smoke=True, device="cuda")
+    params = api.init(torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(1).integers(
+        0, api.cfg.vocab, (6, 7)).astype(np.int32)
+    cfg = {"paged": dict(max_batch=3, cache_len=64, block_tokens=4,
+                         hbm_blocks=6, prefill_chunk=3, max_queue=8),
+           "tenants": dict(max_batch=2, cache_len=64, block_tokens=4,
+                           hbm_blocks=10, prefill_chunk=2, max_queue=12),
+           "rwkv6": dict(max_batch=3, cache_len=64, prefill_chunk=4,
+                         max_queue=8)}[case]
+    return (api, params, EngineConfig(**cfg, megastep=4, pipeline_depth=2,
+                                      device="cuda"), prompts)
+
+
+def _graph_run(api, params, cfg, prompts, graphs, tenants):
+    """One run with ``decode_step`` counted: tokens, stats, paging stats,
+    micro-steps, the kernels' launches, the engine, and the decode_step
+    calls made while the engine was built and while it ran."""
+    from repro_torch.serve import (KVStoreTenant, ServeEngine,
+                                   VectorSearchTenant)
+    calls = [0]
+
+    def counted(*a):
+        calls[0] += 1
+        return api.decode_step(*a)
+
+    eng = ServeEngine(api._replace(decode_step=counted), params, cfg,
+                      _graphs=None if graphs else False)
+    built = calls[0]
+    if tenants:
+        kv = eng.add_tenant(KVStoreTenant(n_slots=2, ops_per_step=1,
+                                          store_blocks=12))
+        kv.preload(12)
+        vec = eng.add_tenant(VectorSearchTenant(
+            n_slots=1, visits_per_step=2, data_blocks=6))
+        kv.submit("sequential", n_steps=24)
+        kv.submit("read_heavy", n_steps=24)
+        vec.submit(n_steps=24)
+    rids = [eng.submit(p, 9, arrival_step=2 * i).rid
+            for i, p in enumerate(prompts)]
+    ds.reset_launches()
+    vd.reset_launches()
+    outs = eng.run(max_steps=300)
+    torch.cuda.synchronize()
+    launches = {**ds.LAUNCHES, **vd.LAUNCHES}
+    return dict(tokens=[outs[r] for r in rids], stats=eng.stats(),
+                paging=eng.paging_stats(), micro=eng.decode_steps,
+                launches=launches, engine=eng, built=built,
+                ran=calls[0] - built)
+
+
+@pytest.mark.parametrize("case", ["paged", "tenants", "rwkv6"])
+def test_graph_engine_equals_eager_megastep(cuda, case):
+    """The graphed engine against the eager megastep on the card: the
+    same tokens (and the static-batch oracle's), stats, paging stats,
+    micro-steps and kernel launches; ``decode_step`` runs while the
+    graphs are captured (a warm-up and a capture of every step) and never
+    on a replay; the graphs stay within prefill_chunk + 1."""
+    from repro_torch.serve import reference_decode
+    api, params, cfg, prompts = _graph_case(case)
+    tenants = case == "tenants"
+    eager = _graph_run(api, params, cfg, prompts, False, tenants)
+    graphed = _graph_run(api, params, cfg, prompts, True, tenants)
+    for a, b in zip(eager["tokens"], graphed["tokens"]):
+        np.testing.assert_array_equal(b, a)
+    for key in ("stats", "paging", "micro", "launches"):
+        assert graphed[key] == eager[key], key
+    B = cfg.max_batch
+    for lo in range(0, len(prompts), B):
+        want = reference_decode(api, params, prompts[lo:lo + B], 9,
+                                cache_len=cfg.cache_len).cpu().numpy()
+        for j in range(want.shape[0]):
+            np.testing.assert_array_equal(graphed["tokens"][lo + j],
+                                          want[j])
+    eng = graphed["engine"]
+    keys = eng.graphs.keys
+    assert eng.graphs.captured and eng.n_graphs == len(keys)
+    assert eng.n_graphs <= cfg.prefill_chunk + 1
+    assert keys == tuple(range(0 if eng.paged else 1,
+                               cfg.prefill_chunk + 1))
+    assert graphed["built"] == 2 * sum(keys) and graphed["ran"] == 0
+    assert eager["built"] == 0 and eager["ran"] == eager["micro"] > 0
+    assert eager["engine"].graphs is None
+    if tenants:
+        assert graphed["launches"]["l2_distance"] > 0
+        assert eng.paging_stats()["by_path"]["/serve/redis/read_heavy"][
+            "fused_calls"] == 0
+    if eng.paged:
+        assert graphed["launches"]["duplex_kv_stream"] > 0
+        eng.pool.check_invariants()
+
+
+def test_failed_capture_raises_without_fallback(cuda):
+    """A ``decode_step`` that syncs with the host cannot be captured: the
+    engine raises while it is built and never serves eagerly instead. In
+    a process of its own, so that the failed capture leaves nothing
+    behind in this one."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    code = """
+import torch
+from repro_torch.models import registry
+from repro_torch.serve import EngineConfig, ServeEngine
+api = registry.build("smollm-135m", smoke=True, device="cuda")
+params = api.init(torch.Generator().manual_seed(0))
+
+def syncing(params, cache, tokens, pos):
+    tokens.sum().item()
+    return api.decode_step(params, cache, tokens, pos)
+
+try:
+    ServeEngine(api._replace(decode_step=syncing), params, EngineConfig(
+        max_batch=2, cache_len=32, block_tokens=4, hbm_blocks=6,
+        device="cuda"))
+except RuntimeError as exc:
+    print("raised:", str(exc).splitlines()[0])
+else:
+    print("built")
+"""
+    env = dict(os.environ, PYTHONPATH=str(
+        Path(__file__).resolve().parents[1] / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("raised:"), out.stdout + out.stderr[-2000:]
