@@ -44,6 +44,21 @@ read just after:
     d_ff 14336, vocab 65536, 64 heads of 64; B=2, S=4096), which must
     launch the ``wkv6`` kernel once per layer and agree with the plain
     forward (logits gated in f32, against a control fault);
+  * the tiered path: the main path's requests beside a KV-store tenant on
+    a host tier of two DDR5 and two CXL channels (``TIER_SPEC``), graphed
+    then eager: the same host-deterministic readings, every request the
+    main path's tokens, boundary migrations (``check_invariants`` after
+    each), page-ins and page-outs on all four channels, ``tier_speedup``
+    above 1, the three stream kernels launched, no host sync in the
+    graphed run, every store block holding its value; every
+    stream shape the tiered and fault runs hand a kernel is held against
+    the plain version after them;
+  * the fault path: the same run under ``FAULT_PLAN`` (a degraded and a
+    flaky CXL channel, a poisoned block, the other CXL channel offline)
+    and under one ``random_plan`` schedule, each graphed then eager: the
+    same survivors, failed records and fault stats, survivors token-exact,
+    every evacuated row byte-equal to its value before the move, each
+    store block its value or lost to a fault;
   * the RWKV serving path: rwkv6-7b FULL through ``ServeEngine`` with
     paging gated off by its recurrent cache, on the step graphs, every
     request token for token against ``reference_decode``, then with the
@@ -64,6 +79,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -96,6 +112,30 @@ TENANT_SERVE = dict(max_batch=4, cache_len=256, block_tokens=16,
                     hbm_blocks=40, megastep=8, pipeline_depth=2,
                     prefill_chunk=4)
 TENANT_LLM_REQUESTS, TENANT_GEN, TENANT_STEPS = 8, 32, 48
+
+# the tiered path: the main path's requests at the main path's SERVE
+# config, on a host tier of two half-duplex DDR5 and two full-duplex CXL
+# channels (256 host slots of (16, 11520) int8, about 47 MB), beside a
+# KV-store tenant whose sequential streams prefer DDR5 and whose gaussian
+# stream, like the LLM's /serve/kv_cache, prefers CXL: blocks change
+# tiers and migrate at the boundaries. LLM decode alone would send every
+# block to CXL (no migration, both DDR5 channels idle), as in the
+# reference.
+TIER_SPEC = "ddr5:2,cxl:2"
+TIER_KV = dict(n_slots=2, ops_per_step=2, store_blocks=32)
+TIER_STREAMS = (("sequential", "read"), ("sequential", "write"),
+                ("gaussian", None))
+TIER_STEPS = 48
+# the fault path: the same run under a plan in which every recoverable
+# kind fires on the run's transaction clock (~172 transactions): a CXL
+# channel at half bandwidth, transient errors on the other, a poisoned
+# block that has a host copy by transaction 60, and the second CXL
+# channel offline at 80 with live rows; then one seeded chaos schedule
+# (``random_plan``) over the same run
+FAULT_PLAN = ("degrade:2@10+40=0.5,transient:3@20+60=0.3,poison:40@60,"
+              "offline:3@80")
+FAULT_SEED = 0
+CHAOS_SEED, CHAOS_HORIZON, CHAOS_EVENTS = 3, 160, 4
 
 STREAMS = ("duplex_kv_stream", "quant_stream", "dequant_stream")
 # the shape each serving kernel is handed most often on its path (the
@@ -1374,28 +1414,15 @@ def serve_full(api, params, shapes_seen: dict) -> tuple[dict, dict]:
         warm.submit(prompts[i, :8], 8)
     warm.run()
 
-    # record the stream shapes the serving path hands each kernel
-    wrapped = {}
-    for name in ("duplex_kv_stream", "quant_stream", "dequant_stream"):
-        real = getattr(ds, name)
-
-        def rec(*a, _real=real, _name=name):
-            shapes_seen.setdefault(_name, Counter())[tuple(a[0].shape)] += 1
-            return _real(*a)
-
-        wrapped[name] = real
-        setattr(ds, name, rec)
-
     engine, rids = main_run_engine()
     torch.cuda.synchronize()
     ds.reset_launches()
-    t0 = time.perf_counter()
-    outs = engine.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with stream_shapes(shapes_seen):
+        t0 = time.perf_counter()
+        outs = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = dict(ds.LAUNCHES)
-    for name, real in wrapped.items():
-        setattr(ds, name, real)
 
     check_decode(api, params, prompts, outs, rids, GEN, SERVE["max_batch"],
                  SERVE["cache_len"])
@@ -1465,6 +1492,70 @@ def megastep_turns(main: dict) -> dict:
     return walls
 
 
+@contextlib.contextmanager
+def stream_shapes(seen: dict):
+    """Count, by kernel, the (N, T, D) shapes the serving path hands each
+    stream kernel while the block runs (into ``seen``)."""
+    from repro_torch.kernels import duplex_stream as ds
+    real = {name: getattr(ds, name) for name in STREAMS}
+
+    def recorder(name):
+        def rec(*a):
+            seen.setdefault(name, Counter())[tuple(a[0].shape)] += 1
+            return real[name](*a)
+        return rec
+
+    for name in STREAMS:
+        setattr(ds, name, recorder(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(ds, name, fn)
+
+
+def check_store(kv, pool, what: str, lost_ok: bool = False) -> tuple:
+    """Every store block holds the synthesized value of its latest SET
+    version, as tests/test_workloads.py:49-61: from HBM where it is
+    resident, else dequantized from its host-tier slot (int8 round-trip
+    tolerance for both). With ``lost_ok`` (a fault run) a block may
+    instead have lost its value: all zero in HBM (the zero-install of a
+    tenant block whose host copy was lost) or no host slot at all.
+    Returns the counts of blocks checked and of blocks found lost."""
+    from repro_torch.kernels import ref
+    from repro_torch.serve.workloads import _synth_blocks, kv_value_seed
+    T, D = pool.block_shape
+    checked = lost = 0
+    for b in kv._store:
+        if b not in kv._version:
+            continue
+        slot, hs = pool.slot_of[b], pool.host.slot_of[b]
+        if slot >= 0:
+            got = pool.hbm[slot].float()
+        elif hs >= 0:
+            got = ref.dequantize_int8(pool.host_q[hs],
+                                      pool.host_scale[hs]).float()
+        elif lost_ok:
+            lost += 1
+            continue
+        else:
+            fail(f"{what}: store block {b} is neither resident nor on the "
+                 f"host tier")
+        want = _synth_blocks(torch.tensor(
+            [kv_value_seed(b, kv._version[b])], dtype=torch.int32,
+            device=pool.device), tokens=T, dims=D)[0].float()
+        err = (got - want).abs().max().item()
+        if err > 1.0 / 127.0 + 0.05:
+            if not (lost_ok and slot >= 0 and not got.any().item()):
+                fail(f"{what}: store block {b} differs from its value by "
+                     f"{err}")
+            lost += 1
+        checked += 1
+    if checked == 0:
+        fail(f"{what}: no store block to check")
+    return checked, lost
+
+
 def serve_tenants(api, params, l2_shapes: Counter) -> dict:
     """The tenant path: smollm-135m FULL decode co-served with a KV-store
     tenant (two sequential streams, one read-heavy stream over a preloaded
@@ -1473,14 +1564,12 @@ def serve_tenants(api, params, l2_shapes: Counter) -> dict:
     step graphs. Run once under ``torch.cuda.set_sync_debug_mode("warn")``,
     then once more with the eager megastep, which must serve the same;
     returns the launch counts of the graphed run alone."""
-    import traceback
-    import warnings
-
+    from repro_torch.device import sync_watch
     from repro_torch.kernels import duplex_stream as ds
     from repro_torch.kernels import vector_distance as vd
     from repro_torch.serve import (EngineConfig, KVStoreTenant, ServeEngine,
                                    VectorSearchTenant)
-    from repro_torch.serve.workloads import _synth_blocks, kv_value_seed
+    from repro_torch.serve.workloads import _synth_blocks
 
     prompts = np.random.default_rng(2).integers(
         0, api.cfg.vocab, (TENANT_LLM_REQUESTS, PROMPT_LEN)).astype(np.int32)
@@ -1518,41 +1607,13 @@ def serve_tenants(api, params, l2_shapes: Counter) -> dict:
     torch.cuda.synchronize()
     ds.reset_launches()
     vd.reset_launches()
-    # each sync warning is charged to the innermost frame of the port's
-    # own code on the stack when it was raised
-    sync_sites: Counter = Counter()
-
-    def on_warning(message, category, filename, lineno, *rest):
-        if "synchroniz" not in str(message):
-            return
-        stack = traceback.extract_stack()[:-1]
-        own = [f for f in stack if "repro_torch" in f.filename]
-        frames = own[-1:] if own else stack[-3:]
-        sync_sites[" < ".join(f"{Path(f.filename).name}:{f.lineno}"
-                              for f in reversed(frames))] += 1
-
-    # the watch alone, with nothing between switching it on and off
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = on_warning
-        torch.cuda.set_sync_debug_mode("warn")
-        torch.cuda.set_sync_debug_mode("default")
-    watch_alone = sum(sync_sites.values())
-    sync_sites.clear()
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = on_warning
-        # only the engine's run is watched: the synchronize that ends the
-        # timing below is this script's own
-        torch.cuda.set_sync_debug_mode("warn")
+    # only the engine's run is watched: the synchronize that ends the
+    # timing below is this script's own
+    with sync_watch() as sync_sites:
         t0 = time.perf_counter()
-        try:
-            outs = eng.run()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        outs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = {**ds.LAUNCHES, **vd.LAUNCHES}
     vd.l2_distance = real
 
@@ -1564,25 +1625,9 @@ def serve_tenants(api, params, l2_shapes: Counter) -> dict:
     if kv.ops_done <= 0 or vec.queries_done <= 0:
         fail(f"tenants served nothing: {kv.ops_done} ops, "
              f"{vec.queries_done} queries")
-    # resident store blocks hold the synthesized values of their latest
-    # SET version (int8 round-trip tolerance for blocks that travelled
-    # through the host tier), as tests/test_workloads.py:49-61
     pool = eng.pool
     T, D = pool.block_shape
-    checked = 0
-    for b in kv._store:
-        slot = pool.slot_of[b]
-        if slot < 0 or b not in kv._version:
-            continue
-        want = _synth_blocks(torch.tensor(
-            [kv_value_seed(b, kv._version[b])], dtype=torch.int32,
-            device="cuda"), tokens=T, dims=D)[0].float()
-        err = (pool.hbm[slot].float() - want).abs().max().item()
-        if err > 1.0 / 127.0 + 0.05:
-            fail(f"store block {b} differs from its value by {err}")
-        checked += 1
-    if checked == 0:
-        fail("no store block was resident to check")
+    checked, _ = check_store(kv, pool, "the tenant path")
     # the walk's minima equal a brute-force scan of the visited blocks
     # (tolerance of tests/test_workloads.py:196-197)
     vreq = treqs[-1]
@@ -1620,7 +1665,6 @@ def serve_tenants(api, params, l2_shapes: Counter) -> dict:
           f"{ps['duplex_speedup']:.4f} by_path [fused, ins, outs]="
           f"{json.dumps(by_path)} launches={launches} "
           f"sync_warnings={sum(sync_sites.values())} {dict(sync_sites)} "
-          f"(the watch alone: {watch_alone}) "
           f"steps={ps['steps']} megasteps={ps['megasteps']} "
           f"host_blocked={ps['host_blocked']}", flush=True)
     out = {"graphs": {"wall_s": wall, "tokens_per_s": tokens / wall,
@@ -1651,6 +1695,221 @@ def serve_tenants(api, params, l2_shapes: Counter) -> dict:
                     ewall * 1e3 / eager.decode_steps}
     print(json.dumps({"tenant_serving": out}), flush=True)
     return launches
+
+
+def tiered_run(api, params, prompts, graphs: bool, plan=None) -> dict:
+    """One run of the tiered path (``TIER_SPEC``, the KV-store tenant of
+    ``TIER_KV``) with the main path's LLM requests, under a fault plan or
+    without: the graphed run under the sync watch. Every boundary's
+    migration is followed by ``check_invariants``; every evacuation's
+    moved rows are compared, on the device, with their values before the
+    move; the store blocks are checked after the run. Returns
+    the host-deterministic readings the graphed and eager runs must share
+    (the stream shapes among them, as [N, T, D, launches]), and the run's
+    wall seconds, syncs and engine."""
+    from repro_torch.core import faults as faults_lib
+    from repro_torch.device import sync_watch, to_device
+    from repro_torch.kernels import duplex_stream as ds
+    from repro_torch.serve import EngineConfig, KVStoreTenant, ServeEngine
+
+    fx = None
+    if plan is not None:
+        events = (faults_lib.parse_fault_plan(plan) if isinstance(plan, str)
+                  else plan)
+        fx = faults_lib.FaultInjector(events, seed=FAULT_SEED)
+    eng = ServeEngine(api, params, EngineConfig(
+        **SERVE, max_queue=N_REQUESTS + 8, tiers=TIER_SPEC, faults=fx,
+        device="cuda"), _graphs=None if graphs else False)
+    kv = eng.add_tenant(KVStoreTenant(**TIER_KV))
+    kv.preload(TIER_KV["store_blocks"])
+    for pattern, phase in TIER_STREAMS:
+        kv.submit(pattern, n_steps=TIER_STEPS, phase=phase)
+    reqs = [eng.submit(prompts[i], GEN, arrival_step=i * ARRIVAL_EVERY)
+            for i in range(N_REQUESTS)]
+    pool = eng.pool
+    static = [*eng._dev.values(), *eng.cache.values(), pool.hbm,
+              pool.host_q, pool.host_scale]
+
+    # wrapped here, not in the package: invariants at every boundary, and
+    # each evacuated row against its bytes before the move
+    migrate, evacuate_channel = pool.migrate_tiers, pool._evacuate_channel
+    boundaries, moves = [0], []
+
+    def checked_migrate():
+        out = migrate()
+        pool.check_invariants()
+        boundaries[0] += 1
+        return out
+
+    def compared_evacuate_channel(c):
+        before = pool.host.slot_of.copy()
+        q, sc = pool.host_q.clone(), pool.host_scale.clone()
+        out = evacuate_channel(c)
+        after = pool.host.slot_of
+        moved = np.flatnonzero((before != after) & (before >= 0)
+                               & (after >= 0))
+        si = to_device(before[moved].astype(np.int64), pool.device)
+        di = to_device(after[moved].astype(np.int64), pool.device)
+        moves.append((int(moved.size),
+                      (pool.host_q.index_select(0, di)
+                       == q.index_select(0, si)).all()
+                      & (pool.host_scale.index_select(0, di).view(
+                          torch.int32) == sc.index_select(0, si).view(
+                          torch.int32)).all()))
+        return out
+
+    pool.migrate_tiers = checked_migrate
+    pool._evacuate_channel = compared_evacuate_channel
+    shapes: dict = {}
+    torch.cuda.synchronize()
+    ds.reset_launches()
+    with (sync_watch() if graphs else contextlib.nullcontext(Counter())) \
+            as syncs, stream_shapes(shapes):
+        t0 = time.perf_counter()
+        outs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pool.check_invariants()
+    if any(a is not b for a, b in zip(static[-3:], [
+            pool.hbm, pool.host_q, pool.host_scale])) or (graphs and any(
+            a is not b for a, b in zip(static, [*eng._dev.values(),
+                                                *eng.cache.values()]))):
+        fail("the tiered path rebound a static tensor")
+    bad = [n for n, ok in moves if not bool(ok)]
+    if bad:
+        fail(f"evacuated rows changed in the move: {bad}")
+    stored, lost = check_store(kv, pool, f"the tiered path (plan {plan})",
+                               lost_ok=plan is not None)
+    readings = {
+        "served": {i: outs[r.rid].tolist() for i, r in enumerate(reqs)
+                   if r.rid in outs},
+        "failed": {i: r.error for i, r in enumerate(reqs)
+                   if r.rid in eng.failed},
+        "stats": eng.stats(), "paging": eng.paging_stats(),
+        "kv_ops": kv.ops_done, "boundaries": boundaries[0],
+        "evacuated_rows": sum(n for n, _ in moves),
+        "store_blocks_checked": stored, "store_blocks_lost": lost,
+        "launches": dict(ds.LAUNCHES),
+        "shapes": {name: sorted([*s, n] for s, n in cnt.items())
+                   for name, cnt in shapes.items()}}
+    return {"readings": readings, "wall": wall, "syncs": dict(syncs),
+            "engine": eng}
+
+
+def tiered_pair(api, params, main: dict, what: str, plan=None) -> dict:
+    """The tiered path graphed, then eager, on the same requests: every
+    host-deterministic reading equal, survivors token for token the main
+    path's tokens (which held against ``reference_decode``), no sync in
+    the graphed run. Returns the graphed run's readings with both runs'
+    wall times."""
+    prompts = np.random.default_rng(1).integers(
+        0, api.cfg.vocab, (N_REQUESTS, PROMPT_LEN)).astype(np.int32)
+    runs = {mode: tiered_run(api, params, prompts, mode == "graphs", plan)
+            for mode in ("graphs", "eager")}
+    g, e = runs["graphs"]["readings"], runs["eager"]["readings"]
+    for key in g:
+        if g[key] != e[key]:
+            fail(f"{what}: the graphed and eager runs differ in {key}: "
+                 f"{g[key]} against {e[key]}")
+    if runs["graphs"]["syncs"]:
+        fail(f"{what}: the graphed run synced with the host: "
+             f"{runs['graphs']['syncs']}")
+    for i, toks in g["served"].items():
+        if toks != main["tokens"][i].tolist():
+            fail(f"{what}: request {i} served other tokens than the "
+                 f"main path")
+    for i, err in g["failed"].items():
+        if err["kind"] not in ("poisoned_block", "evacuation_casualty",
+                               "shed") or "step" not in err:
+            fail(f"{what}: request {i} failed without a recoverable "
+                 f"error: {err}")
+    if len(g["served"]) + len(g["failed"]) != N_REQUESTS:
+        fail(f"{what}: requests went missing")
+    eng = runs["graphs"]["engine"]
+    graph_lines(what, eng)
+    tokens = sum(len(t) for t in g["served"].values())
+    ts = g["paging"]["tiers"]
+    out = {"readings": g, "graphs": {}, "eager": {}}
+    for mode, run in runs.items():
+        steps = run["engine"].decode_steps
+        out[mode] = {"wall_s": run["wall"],
+                     "tokens_per_s": tokens / run["wall"],
+                     "wall_ms_per_decode_step": run["wall"] * 1e3 / steps}
+    print(f"{what}: {len(g['served'])} of {N_REQUESTS} LLM requests served "
+          f"token-exact beside the KV store on {TIER_SPEC} "
+          f"({tokens} tokens, {out['graphs']['tokens_per_s']:.1f} tok/s "
+          f"graphed, {out['eager']['tokens_per_s']:.1f} eager); "
+          f"migrations={ts['migrations']} tier_speedup="
+          f"{ts['tier_speedup']} faults={g['stats']['faults']} "
+          f"failed={g['failed']} launches={g['launches']}", flush=True)
+    return out
+
+
+def tiered_line(name: str, out: dict) -> None:
+    """Print a tiered path's host-deterministic readings (all but the
+    tokens, which were held against the main path's) and its times as one
+    JSON line, for later calls to hold."""
+    r = out["readings"]
+    line = {k: v for k, v in r.items() if k != "served"}
+    line["served"] = len(r["served"])
+    line.update({mode: out[mode] for mode in ("graphs", "eager")})
+    if "plan" in out:
+        line["plan"] = out["plan"]
+    print(json.dumps({name: line}), flush=True)
+
+
+def serve_tiered(api, params, main: dict) -> dict:
+    """The tiered path without faults: migrations at the boundaries, all
+    four channels carrying page-ins and page-outs, ``tier_speedup`` > 1."""
+    out = tiered_pair(api, params, main, "tiered")
+    g = out["readings"]
+    ts = g["paging"]["tiers"]
+    if ts["migrations"] <= 0:
+        fail("the tiered path never migrated a block")
+    idle = [name for name, ch in ts["channels"].items()
+            if ch["page_in_blocks"] <= 0 or ch["page_out_blocks"] <= 0]
+    if idle:
+        fail(f"channels {idle} carried no page-ins or no page-outs")
+    if not g["paging"]["tier_speedup"] > 1.0:
+        fail(f"tier_speedup {g['paging']['tier_speedup']} is not above 1")
+    if g["failed"] or g["boundaries"] <= 0:
+        fail("the tiered path failed requests or had no boundary")
+    for name, n in g["launches"].items():
+        if n <= 0:
+            fail(f"the tiered path never launched {name}")
+    tiered_line("tiered", out)
+    return out
+
+
+def serve_faults(api, params, main: dict) -> dict:
+    """The fault path: the tiered run under ``FAULT_PLAN`` (every
+    recoverable kind fires) and under one seeded chaos schedule, each
+    graphed against eager. Returns both runs' readings and times."""
+    from repro_torch.core import faults as faults_lib
+    out = {"fixed": tiered_pair(api, params, main, "faults", FAULT_PLAN)}
+    out["fixed"]["plan"] = FAULT_PLAN
+    f = out["fixed"]["readings"]["stats"]["faults"]
+    want = {"injected": 4, "offline_channels": [3]}
+    if any(f[k] != v for k, v in want.items()) or not (
+            f["retried"] > 0 and f["quarantined"] > 0
+            and f["evacuated"] > 0 and f["failed"] > 0):
+        fail(f"the fault plan did not fire as planned: {f}")
+    if out["fixed"]["readings"]["evacuated_rows"] != f["evacuated"]:
+        fail("not every evacuated row was compared")
+    from repro_torch.serve import EngineConfig
+    plan = faults_lib.random_plan(CHAOS_SEED, n_channels=4,
+                                  n_blocks=EngineConfig(
+                                      **SERVE).resolved_pool_blocks(),
+                                  horizon=CHAOS_HORIZON,
+                                  n_events=CHAOS_EVENTS)
+    out["chaos"] = tiered_pair(api, params, main, f"chaos{CHAOS_SEED}",
+                               plan)
+    out["chaos"]["plan"] = [dataclasses.asdict(e) for e in plan]
+    if out["chaos"]["readings"]["stats"]["faults"]["injected"] < 1:
+        fail("the chaos schedule never fired")
+    tiered_line("faults", out["fixed"])
+    tiered_line(f"chaos{CHAOS_SEED}", out["chaos"])
+    return out
 
 
 def profile_serving(api, params, main: dict, walls: dict) -> None:
@@ -1845,6 +2104,18 @@ def main() -> int:
     l2_shapes: Counter = Counter()
     tenant_launches = serve_tenants(api, params, l2_shapes)
     mark("tenants")
+    tiered = serve_tiered(api, params, main_run)
+    mark("tiered")
+    faulted = serve_faults(api, params, main_run)
+    tier_runs = {"tiered": tiered["readings"],
+                 "faults": faulted["fixed"]["readings"],
+                 f"chaos{CHAOS_SEED}": faulted["chaos"]["readings"]}
+    # every shape the tiered and fault runs handed a stream kernel, held
+    # against the plain version (the rows below are timed at the main
+    # path's shapes)
+    check_kernels(sorted({tuple(s[:3]) for r in tier_runs.values()
+                          for rows in r["shapes"].values() for s in rows}))
+    mark("faults")
     forward = {}
     for arch, B, S in FORWARD_RUNS:
         forward[arch] = forward_phase(arch, B, S)
@@ -1865,6 +2136,14 @@ def main() -> int:
     for row in kernels:     # the main path's runs, l2 the tenant path's
         row["launches"] = (tenant_launches if row["name"] == "l2_distance"
                            else launches)[row["name"]]
+        if row["name"] in STREAMS:
+            # the graphed tiered run and the graphed fixed-plan fault
+            # run, each with the shape it handed the kernel most often
+            for path in ("tiered", "faults"):
+                r = tier_runs[path]
+                row[f"launches_{path}"] = r["launches"][row["name"]]
+                row[f"shape_{path}"] = max(r["shapes"][row["name"]],
+                                           key=lambda s: s[3])[:3]
     # measured at the smollm-135m prefill shape; launched per forward
     flash_row["launches"] = forward["smollm-135m"]["launches"]
     flash_row["launches_paligemma"] = forward["paligemma-3b"]["launches"]

@@ -1,7 +1,8 @@
 """Channel models for duplex-aware memory scheduling (CXLAimPod §2-§3).
 
 The pure-Python subset of ``repro/core/channel.py``: the static
-``ChannelModel``, its calibrated presets, and the scalar
+``ChannelModel`` (with ``degraded``, the fault layer's bandwidth cut),
+its calibrated presets, the host-tier spec parser, and the scalar
 effective-bandwidth curve the serving path bills with. Link timing in the
 port is modelled, exactly as in the reference, so these are plain float
 arithmetic and reproduce the reference's numbers bit for bit. The
@@ -56,6 +57,20 @@ class ChannelModel:
             return (self.read_bw * self.seq_read_boost,
                     self.write_bw * self.seq_write_boost)
         return (self.read_bw, self.write_bw)
+
+    def degraded(self, factor: float) -> "ChannelModel":
+        """This channel at ``factor`` of nominal bandwidth (fault
+        injection: link retraining / thermal throttle). Latency and
+        duplex behaviour are unchanged — only both direction rates
+        scale, so billing under degradation stays on the same
+        effective-bandwidth curve."""
+        if not 0.0 < factor <= 1.0:
+            raise ValueError("degradation factor must be in (0, 1]")
+        if factor == 1.0:
+            return self
+        return dataclasses.replace(
+            self, name=f"{self.name}@{factor:g}x",
+            read_bw=self.read_bw * factor, write_bw=self.write_bw * factor)
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +169,43 @@ TIER_PRESETS: dict[str, ChannelModel] = {
     "ddr5": DDR5_HOST,
     "cxl": CXL_HOST,
 }
+
+
+def parse_tier_spec(spec: str) -> list[tuple[str, ChannelModel]]:
+    """Parse a ``kind:count,...`` channel-set spec into (kind, model) pairs.
+
+    ``"ddr5:2,cxl:2"`` -> two DDR5 channels followed by two CXL channels.
+    Raises ``ValueError`` naming the known kinds on any malformed or
+    unknown entry, so CLI frontends can validate at argparse time.
+    """
+    known = ",".join(sorted(TIER_PRESETS))
+    entries = [e.strip() for e in spec.split(",") if e.strip()]
+    if not entries:
+        raise ValueError(
+            f"empty tier spec {spec!r}; expected kind:count pairs like "
+            f"'ddr5:2,cxl:2' (known kinds: {known})")
+    channels: list[tuple[str, ChannelModel]] = []
+    for entry in entries:
+        kind, sep, count = entry.partition(":")
+        if kind not in TIER_PRESETS:
+            raise ValueError(
+                f"unknown tier kind {kind!r} in {spec!r}; known kinds: "
+                f"{known}")
+        n = 1
+        if sep:
+            try:
+                n = int(count)
+            except ValueError:
+                raise ValueError(
+                    f"bad channel count {count!r} for tier {kind!r} in "
+                    f"{spec!r}; expected kind:count pairs like "
+                    f"'ddr5:2,cxl:2' (known kinds: {known})") from None
+        if n < 1:
+            raise ValueError(
+                f"tier {kind!r} needs at least one channel, got {n} "
+                f"(spec {spec!r}; known kinds: {known})")
+        channels.extend((kind, TIER_PRESETS[kind]) for _ in range(n))
+    return channels
 
 
 def effective_bandwidth_scalar(channel: ChannelModel,

@@ -1,8 +1,9 @@
 """DuplexOffloadEngine — co-scheduled host↔HBM transfer planning.
 
 The planning and billing subset of ``repro/core/offload.py``, pure
-Python. The host link is full-duplex: a page-in (host→HBM) and a
-page-out (HBM→host) can move concurrently. ``plan_duplex`` co-issues
+Python, with the host-tier ``MIGRATE`` / ``EVACUATE`` transfer records.
+The host link is full-duplex: a page-in (host→HBM) and a page-out
+(HBM→host) can move concurrently. ``plan_duplex`` co-issues
 opposing transfers slot by slot (respecting that an HBM slot's eviction
 must finish before its refill), ``plan_serial`` is the phase-separated
 baseline, and ``OffloadPlan.modelled_time_us`` integrates either under
@@ -22,6 +23,8 @@ from repro_torch.core.telemetry import CaxRegistry
 
 PAGE_IN = 0    # host -> HBM  (prefetch / page-in; link "read")
 PAGE_OUT = 1   # HBM -> host  (writeback / eviction; link "write")
+MIGRATE = 2    # host tier -> host tier (background placement rebalance)
+EVACUATE = 3   # emergency off a failing channel (fault recovery, not idle-BW)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +94,41 @@ def phase_separated_time_us(channel: ChannelModel, read_bytes: float,
     t = (read_bytes / (br * channel_lib.BYTES_PER_GB)
          + write_bytes / (bw * channel_lib.BYTES_PER_GB))
     return t * 1e6
+
+
+def migration_transfers(blocks: Sequence[int], src_slots: Sequence[int],
+                        dst_slots: Sequence[int], block_bytes: float,
+                        hint_path: str = "/serve/tier_migrate"
+                        ) -> list[Transfer]:
+    """Describe host-tier rebalance moves as ``MIGRATE`` transfers.
+
+    ``src_slots``/``dst_slots`` are global host-slot indices (the tiered
+    pool's slot namespace); a migration reads the source channel and
+    writes the destination channel, and the tiered pool schedules it
+    into the idle minor direction of the CXL link it touches.
+    """
+    if not (len(blocks) == len(src_slots) == len(dst_slots)):
+        raise ValueError("each migrated block needs a src and dst slot")
+    return [Transfer(MIGRATE, src_block=int(s), dst_block=int(d),
+                     nbytes=block_bytes, hint_path=hint_path)
+            for s, d in zip(src_slots, dst_slots)]
+
+
+def evacuation_transfers(blocks: Sequence[int], src_slots: Sequence[int],
+                         dst_slots: Sequence[int], block_bytes: float,
+                         hint_path: str = "/serve/evacuate"
+                         ) -> list[Transfer]:
+    """Describe emergency channel-evacuation moves as ``EVACUATE``
+    transfers. Same slot-namespace contract as ``migration_transfers``,
+    but these are fault-recovery traffic: the tiered pool bills them
+    immediately into the dying channel's read leg and the survivors'
+    write legs rather than scheduling them into idle minor-direction
+    bandwidth."""
+    if not (len(blocks) == len(src_slots) == len(dst_slots)):
+        raise ValueError("each evacuated block needs a src and dst slot")
+    return [Transfer(EVACUATE, src_block=int(s), dst_block=int(d),
+                     nbytes=block_bytes, hint_path=hint_path)
+            for s, d in zip(src_slots, dst_slots)]
 
 
 def _slot_dependencies(page_ins: Sequence[Transfer],

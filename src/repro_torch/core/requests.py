@@ -19,10 +19,11 @@ Generators cover the paper's evaluation patterns:
 This is host data (the KV-store tenant turns it into float64 at once), so
 it is numpy float32 with the reference's float32 roundings: ``uniform``,
 ``phased``, ``pipelined``, ``llm_decode`` and ``hnsw`` are bit-equal to the
-reference. ``gaussian`` draws its jitter from ``jax.random`` there, which
-the port cannot reproduce; here it draws from an explicit
-``np.random.Generator`` seeded with ``(seed, stream index)``, so it is
-deterministic and has the reference's distribution, not its numbers.
+reference. ``gaussian`` jitters with ``jax.random.normal`` there; here it
+draws the same threefry bits from the same keys (``core/prng.py``:
+``key(seed)``, ``fold_in(key, i)`` for stream ``i``, ``fold_in(.., 1)``
+for the load), and its normals are within a few float32 ulps of JAX's
+(the last bits of XLA's ``erf_inv``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch.core import prng
 from repro_torch.core.hints import MemoryHint
 
 f32 = np.float32
@@ -61,14 +63,14 @@ def _offered_bytes_per_step(spec: StreamSpec) -> float:
     return spec.offered_gbps * 1.0e3
 
 
-def _uniform(spec: StreamSpec, steps: int, rng) -> np.ndarray:
+def _uniform(spec: StreamSpec, steps: int, key) -> np.ndarray:
     per = _offered_bytes_per_step(spec)
     reads = np.full((steps,), f32(per * spec.read_fraction))
     writes = np.full((steps,), f32(per * (1.0 - spec.read_fraction)))
     return np.stack([reads, writes], axis=-1)
 
 
-def _phased(spec: StreamSpec, steps: int, rng) -> np.ndarray:
+def _phased(spec: StreamSpec, steps: int, key) -> np.ndarray:
     """Alternating unidirectional phases — sequential scan then writeback."""
     per = f32(_offered_bytes_per_step(spec))
     t = np.arange(steps)
@@ -81,25 +83,25 @@ def _phased(spec: StreamSpec, steps: int, rng) -> np.ndarray:
     return np.stack([reads, writes], axis=-1).astype(np.float32)
 
 
-def _pipelined(spec: StreamSpec, steps: int, rng) -> np.ndarray:
+def _pipelined(spec: StreamSpec, steps: int, key) -> np.ndarray:
     """Short alternating bursts (default 16-deep command pipeline)."""
     short = dataclasses.replace(spec, phase_steps=max(2, spec.phase_steps // 8))
-    return _phased(short, steps, rng)
+    return _phased(short, steps, key)
 
 
-def _gaussian(spec: StreamSpec, steps: int, rng) -> np.ndarray:
-    """Random per-step ratio and load jitter (numpy draws; see module
+def _gaussian(spec: StreamSpec, steps: int, key) -> np.ndarray:
+    """Random per-step ratio and load jitter (threefry draws; see module
     docstring)."""
     per = f32(_offered_bytes_per_step(spec))
-    jitter = f32(0.25) * rng.standard_normal(steps, dtype=np.float32)
+    jitter = f32(0.25) * prng.normal(key, (steps,))
     rf = np.clip(f32(spec.read_fraction) + jitter, f32(0.0), f32(1.0))
     load = per * np.clip(
-        f32(1.0) + f32(0.25) * rng.standard_normal(steps, dtype=np.float32),
+        f32(1.0) + f32(0.25) * prng.normal(prng.fold_in(key, 1), (steps,)),
         f32(0.25), f32(2.0))
     return np.stack([load * rf, load * (f32(1.0) - rf)], axis=-1)
 
 
-def _llm_decode(spec: StreamSpec, steps: int, rng) -> np.ndarray:
+def _llm_decode(spec: StreamSpec, steps: int, key) -> np.ndarray:
     """§6.4: attention layers ~85% reads, FFN layers 60/40, alternating."""
     per = f32(_offered_bytes_per_step(spec))
     t = np.arange(steps)
@@ -108,7 +110,7 @@ def _llm_decode(spec: StreamSpec, steps: int, rng) -> np.ndarray:
     return np.stack([per * rf, per * (f32(1.0) - rf)], axis=-1)
 
 
-def _hnsw(spec: StreamSpec, steps: int, rng) -> np.ndarray:
+def _hnsw(spec: StreamSpec, steps: int, key) -> np.ndarray:
     """Graph traversal reads with periodic result/cache write bursts."""
     per = f32(_offered_bytes_per_step(spec))
     t = np.arange(steps)
@@ -117,7 +119,7 @@ def _hnsw(spec: StreamSpec, steps: int, rng) -> np.ndarray:
     return np.stack([per * rf, per * (f32(1.0) - rf)], axis=-1)
 
 
-PATTERNS: dict[str, Callable[[StreamSpec, int, np.random.Generator],
+PATTERNS: dict[str, Callable[[StreamSpec, int, np.ndarray],
                              np.ndarray]] = {
     "uniform": _uniform,
     "phased": _phased,
@@ -132,10 +134,11 @@ def generate(specs: list[StreamSpec], steps: int, seed: int = 0
              ) -> np.ndarray:
     """Arrival array of shape (steps, n_streams, 2) [read, write] bytes,
     float32."""
+    key = prng.key(seed)
     cols = []
     for i, spec in enumerate(specs):
         gen = PATTERNS[spec.pattern]
-        cols.append(gen(spec, steps, np.random.default_rng([seed, i])))
+        cols.append(gen(spec, steps, prng.fold_in(key, i)))
     return np.stack(cols, axis=1).astype(np.float32)
 
 

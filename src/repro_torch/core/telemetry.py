@@ -107,6 +107,16 @@ class CaxRegistry:
             node = (self._by_id[node.parent_id]
                     if node.parent_id is not None else None)
 
+    def reset(self) -> None:
+        """Zero every context's accumulators in place. Scope identity
+        (paths, ids, hierarchy) survives — attached producers keep
+        their references — only the measurements restart."""
+        for c in self._by_path.values():
+            c.read_bytes = c.write_bytes = 0.0
+            c.flops = c.collective_bytes = 0.0
+            c.samples = 0
+            c.last_update = 0.0
+
     def to_dict(self) -> dict:
         """The scope tree as one JSON-able dict keyed by path (the serve
         CLI's ``--telemetry`` report)."""

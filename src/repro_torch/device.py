@@ -8,6 +8,12 @@ they raise: nothing silently falls back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
+import traceback
+import warnings
+from collections import Counter
+from pathlib import Path
+
 import torch
 
 
@@ -33,3 +39,42 @@ def to_device(array, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+@contextlib.contextmanager
+def _sync_sites():
+    sites: Counter = Counter()
+
+    def on_warning(message, category, filename, lineno, *rest):
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        own = [f for f in stack if "repro_torch" in f.filename]
+        frames = own[-1:] if own else stack[-3:]
+        sites[" < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                         for f in reversed(frames))] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield sites
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def sync_watch():
+    """Count the device-to-host syncs raised while the block runs
+    (``torch.cuda.set_sync_debug_mode("warn")``), each charged to the
+    innermost frame of the port's own code on the stack when it was
+    raised. Yields a ``Counter`` of those sites; when the block ends,
+    what switching the watch on raises by itself is taken off it."""
+    with _sync_sites() as alone:
+        pass
+    with _sync_sites() as sites:
+        yield sites
+    sites.subtract(alone)
+    for site in [s for s, n in sites.items() if n <= 0]:
+        del sites[site]

@@ -1,5 +1,6 @@
 """Serving driver: multi-tenant continuous batching with duplex-paged KV
-(port of ``repro/launch/serve.py``, flat pool).
+(port of ``repro/launch/serve.py``; ``--tiers`` backs the pool's host
+side with DDR5/CXL channels, ``--faults`` injects a fault plan).
 
 Requests arrive staggered into the ``ServeEngine`` megastep loop; the
 admission policy picks which waiting work joins the running set — LLM
@@ -22,6 +23,7 @@ and prompts are random, from fixed seeds.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -29,6 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch import configs as configs_lib
+from repro_torch.core import channel as channel_lib
+from repro_torch.core import faults as faults_lib
 from repro_torch.models import registry as R
 from repro_torch.serve import (EngineConfig, EngineStallError, KVStoreTenant,
                                ServeEngine, VectorSearchTenant)
@@ -46,6 +50,31 @@ def _tenants_arg(value: str) -> list[str]:
             f"unknown tenants {unknown}; known tenants: "
             f"{','.join(KNOWN_TENANTS)}")
     return names
+
+
+def _tiers_arg(value: str) -> str | None:
+    """argparse type for --tiers: validate the channel-set spec against
+    the tier-preset registry at parse time (the error names the known
+    kinds)."""
+    if not value:
+        return None
+    try:
+        channel_lib.parse_tier_spec(value)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+    return value
+
+
+def _faults_arg(value: str) -> str | None:
+    """argparse type for --faults: validate the fault-plan grammar at
+    parse time (the error spells out the event syntax)."""
+    if not value:
+        return None
+    try:
+        faults_lib.parse_fault_plan(value)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+    return value
 
 
 def main() -> int:
@@ -80,6 +109,14 @@ def main() -> int:
                         "blocking boundary. Bit-exact either way")
     p.add_argument("--policy", default="hinted",
                    help="admission policy (core.policies registry)")
+    p.add_argument("--tiers", type=_tiers_arg, default=None,
+                   help="host-memory channel set for the KV pool, as "
+                        "kind:count pairs (e.g. ddr5:2,cxl:2; kinds: "
+                        f"{','.join(sorted(channel_lib.TIER_PRESETS))}). "
+                        "Default: flat single-channel host pool")
+    p.add_argument("--no-tier-migrate", action="store_true",
+                   help="disable megastep-boundary host-tier "
+                        "migrations (tiered pools only)")
     p.add_argument("--tenants", type=_tenants_arg, default=[],
                    help="comma-separated non-LLM tenants to co-serve: "
                         f"{','.join(KNOWN_TENANTS)} (each adds "
@@ -89,6 +126,17 @@ def main() -> int:
                    help="op-stream length for each tenant request")
     p.add_argument("--arrival-every", type=int, default=2,
                    help="steps between request arrivals (0 = all at once)")
+    p.add_argument("--faults", type=_faults_arg, default=None,
+                   help="deterministic fault plan, comma-separated "
+                        "events: offline:C@S (channel C hot-unplugs at "
+                        "pool transaction S), poison:B@S (host copy of "
+                        "block B corrupts), degrade:C@S+D=F (bandwidth "
+                        "x F for D transactions), transient:C@S+D=P "
+                        "(transfer error probability P), crash:@S "
+                        "(process death; nothing recovers it). Requires "
+                        "paging; offline events require --tiers")
+    p.add_argument("--fault-seed", type=int, default=0,
+                   help="seed for the injector's transient-retry draws")
     p.add_argument("--stall-boundaries", type=int, default=64,
                    help="consecutive zero-progress megastep boundaries "
                         "before run() raises EngineStallError")
@@ -103,6 +151,12 @@ def main() -> int:
     tenant_names = args.tenants            # validated at argparse time
     if tenant_names and args.no_paging:
         p.error("tenants serve from the paged pool; drop --no-paging")
+    if args.tiers and args.no_paging:
+        p.error("--tiers configures the paged pool's host side; drop "
+                "--no-paging")
+    if args.faults and args.no_paging:
+        p.error("--faults targets the paged memory hierarchy; drop "
+                "--no-paging")
 
     api = R.build(args.arch, smoke=not args.full, device=args.device)
     params = api.init(torch.Generator().manual_seed(0))
@@ -117,13 +171,23 @@ def main() -> int:
         pool_blocks=args.pool_blocks, prefill_chunk=args.prefill_chunk,
         max_queue=max(args.requests, args.batch) + 8, policy=args.policy,
         paging=not args.no_paging, megastep=args.megastep,
+        tiers=args.tiers, tier_migrate=not args.no_tier_migrate,
         pipeline_depth=args.pipeline_depth,
         stall_boundaries=args.stall_boundaries, device=args.device)
     prompts = np.random.default_rng(1).integers(
         0, api.cfg.vocab, (args.requests, args.prompt_len)).astype(np.int32)
 
     def build_and_submit():
-        engine = ServeEngine(api, params, cfg)
+        # a FaultInjector is stateful (clock + retry RNG): each engine
+        # build gets a fresh one so warmup and the measured run replay
+        # the identical fault schedule.
+        run_cfg = cfg
+        if args.faults:
+            run_cfg = dataclasses.replace(
+                cfg, faults=faults_lib.FaultInjector(
+                    faults_lib.parse_fault_plan(args.faults),
+                    seed=args.fault_seed))
+        engine = ServeEngine(api, params, run_cfg)
         if "redis" in tenant_names:
             kv = engine.add_tenant(KVStoreTenant(
                 n_slots=2, ops_per_step=1, store_blocks=16))
@@ -140,9 +204,17 @@ def main() -> int:
         return engine, rids
 
     def crash_report(engine, exc) -> dict:
+        """The reference's operator report for a run the engine could not
+        finish: exception identity, fault counters and every failed
+        request's structured error (no snapshot layer to resume from)."""
         err = {"error": {"type": type(exc).__name__, "message": str(exc)},
                "arch": args.arch, "requests": args.requests,
-               "steps": int(engine.step_count)}
+               "faults_plan": args.faults,
+               "steps": int(engine.step_count),
+               "faults": engine.stats()["faults"],
+               "failed_requests": {int(r.rid): r.error
+                                   for r in engine.failed.values()},
+               "snapshot": None}
         if isinstance(exc, EngineStallError):
             err["error"]["stuck_rids"] = exc.rids
         return err
@@ -184,6 +256,17 @@ def main() -> int:
         print(f"first request: admitted step {first.admitted_step}, "
               f"done step {first.done_step}, tokens "
               f"{outs[done_rids[0]][:8].tolist()}...")
+    if args.faults:
+        f = est["faults"]
+        print(f"faults: {f['injected']} injected, {f['recovered']} "
+              f"recovered, {f['quarantined']} quarantined, "
+              f"{f['evacuated']} evacuated, {f['shed']} shed, "
+              f"{len(engine.failed)} failed requests")
+    if engine.paged and engine.pool.tiered:
+        ts = engine.pool.tier_stats()
+        print(f"tiered host pool ({args.tiers}): "
+              f"tier_speedup={ts['tier_speedup']:.2f}x vs all-DDR5 "
+              f"serial, {ts['migrations']} boundary migrations")
 
     def _round(v):
         if isinstance(v, float):
@@ -200,7 +283,7 @@ def main() -> int:
         "policy": args.policy,
         "requests": args.requests,
         "tenants": tenant_names,
-        "tiers": None,
+        "tiers": args.tiers,
         "slots": args.batch,
         "generated_tokens": int(total_tokens),
         "steps": int(engine.step_count),
@@ -211,9 +294,10 @@ def main() -> int:
         "host_blocked": int(est["host_blocked"]),
         "wall_s": round(dt, 3),
         "tok_s": round(total_tokens / dt, 2),
-        "faults_plan": None,
+        "faults_plan": args.faults,
         "faults": _round(est["faults"]),
-        "failed_requests": {},
+        "failed_requests": {int(r.rid): r.error
+                            for r in engine.failed.values()},
         "snapshot": _round(est["snapshot"]),
         "restore": None,
         "paging": _round(engine.paging_stats()),

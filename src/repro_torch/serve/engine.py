@@ -1,9 +1,10 @@
 """ServeEngine — continuous-batching decode over the duplex-paged KV pool.
 
-Port of ``repro/serve/engine.py`` for the flat pool, with tenants
-(``add_tenant``: the KV-store and vector-search ``WorkloadAPI``s of
-``serve/workloads.py``), without faults, snapshots or tracing. The
-structure is the reference's:
+Port of ``repro/serve/engine.py``, with tenants (``add_tenant``: the
+KV-store and vector-search ``WorkloadAPI``s of ``serve/workloads.py``),
+the tiered host pool (``EngineConfig.tiers``, boundary migrations) and
+the fault layer (``EngineConfig.faults``), without snapshots or tracing.
+The structure is the reference's:
 
   1. **admission** at megastep boundaries — free batch slots, and each
      tenant's free slots, are offered to the ``RequestQueue``, whose
@@ -22,7 +23,13 @@ structure is the reference's:
      scope); then each tenant runs its device compute on the resident
      blocks. A megastep with tenant work and no live LLM row still runs
      each inner step's transaction and tenant compute, with no program
-     dispatch and no readback.
+     dispatch and no readback;
+  4. **boundary** — a tiered pool rebalances host placement
+     (``PagedKVPool.migrate_tiers``), and under a fault plan each paging
+     transaction's fault report fails the owning requests (poisoned
+     blocks, evacuation casualties) and degraded capacity sheds load.
+     All of it is host arithmetic plus in-place device copies between
+     replays: no host sync, and the static tensors stay the same objects.
 
 Everything about an engine step except the token values is deterministic
 host arithmetic (``_simulate_row``), so the host plans all K steps'
@@ -66,23 +73,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import policies as policies_lib
+from repro_torch.core.faults import fresh_fault_stats
 from repro_torch.core.hints import HintTree, default_serving_hints
 from repro_torch.core.telemetry import CaxRegistry
 from repro_torch.device import resolve_device, to_device
 from repro_torch.models.registry import ModelAPI
 from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.kv_pool import PagedKVPool
-from repro_torch.serve.queue import (DECODE, DONE, PREFILL, STATE_OF_CODE,
-                                     Request, RequestQueue, S_DECODE, S_DONE,
-                                     S_EMPTY, S_PREFILL)
-
-
-def fresh_fault_stats() -> dict:
-    """The ``stats()["faults"]`` schema of the reference, zeroed: the fault
-    layer is not ported yet."""
-    return {"injected": 0, "retried": 0, "recovered": 0,
-            "quarantined": 0, "shed": 0, "evacuated": 0, "failed": 0,
-            "retry_us": 0.0, "offline_channels": []}
+from repro_torch.serve.queue import (DECODE, DONE, FAILED, PREFILL,
+                                     STATE_OF_CODE, Request, RequestQueue,
+                                     S_DECODE, S_DONE, S_EMPTY, S_PREFILL)
 
 
 def fresh_snapshot_stats() -> dict:
@@ -168,9 +168,17 @@ class EngineConfig:
     megastep: int = 1           # engine steps fused per host dispatch (K);
                                 # run() adapts K <= megastep between
                                 # admission events. 1 = classic step loop.
+    tiers: str | tuple | None = None
+                                # host-memory channel set for the pool
+                                # ("ddr5:2,cxl:2"); None = flat pool
+    tier_migrate: bool = True   # rebalance host placement at megastep
+                                # boundaries (tiered pools only)
     pipeline_depth: int = 1     # megastep boundaries in flight: 1 = plan,
                                 # dispatch, block on the readback; 2 = plan
                                 # and dispatch t+1 before reconciling t.
+    faults: object = None       # core.faults.FaultInjector (or None):
+                                # a deterministic fault plan serviced by
+                                # the pool's transactions; needs paging
     stall_boundaries: int = 64  # run(): consecutive zero-progress
                                 # boundaries before EngineStallError
     device: str = "cuda"        # where the cache, slot state and pool live
@@ -395,13 +403,19 @@ class ServeEngine:
         }
         kv = _kv_cache_leaves(self.cache)
         self.paged = cfg.paging and kv is not None
+        if cfg.faults is not None and not self.paged:
+            raise ValueError(
+                "fault injection targets the paged memory hierarchy; "
+                "this engine has paging disabled (or a non-pageable "
+                "cache family)")
+        self._fx = cfg.faults if self.paged else None
         if self.paged:
             L, _, _, KV, hd = kv["k"].shape
             kv_dims = L * 2 * KV * hd
             self.pool = PagedKVPool(
                 cfg.resolved_pool_blocks(), cfg.hbm_blocks,
                 (cfg.block_tokens, kv_dims), hints=self.hints,
-                device=self.device)
+                tiers=cfg.tiers, faults=cfg.faults, device=self.device)
             kv_bytes = float(kv_dims * 2)
         else:
             self.pool = None
@@ -431,6 +445,7 @@ class ServeEngine:
         self._inflight: list[_InFlight] = []   # dispatched, unreconciled
         self._fb_zero = np.zeros((self.queue.capacity,), np.float32)
         self.completed: dict[int, Request] = {}
+        self.failed: dict[int, Request] = {}     # FAILED terminal records
         self._scan_cursor: dict[int, int] = {}   # rid -> cold-block cursor
         # CAX scope attribution, always wired (host-side dict arithmetic
         # off the billing the pool already does).
@@ -607,12 +622,14 @@ class ServeEngine:
         tenant_done = 0
         for t in range(k):
             rows = [(r, traj[r.rid][t]) for r in live
-                    if traj[r.rid][t].state != S_DONE]
+                    if r.state != FAILED and traj[r.rid][t].state != S_DONE]
             if self.paged:
                 rep = self._page_kv_at(now + t, rows, staged, t,
                                        rec.journal)
                 report["page_ins"] += rep["page_ins"]
                 report["page_outs"] += rep["page_outs"]
+                if self._fx is not None:
+                    self._service_fault_report(rep, now + t, rec)
                 # rows completing at this inner step release their pool
                 # blocks now, exactly when the per-step loop would have.
                 for r in live:
@@ -634,9 +651,23 @@ class ServeEngine:
                     utilization=np.float32(
                         len(rows) / max(1, self.cfg.max_batch))))
 
+        if self.paged and self.pool.tiered and self.cfg.tier_migrate:
+            # boundary tier rebalance: planned from this megastep's
+            # per-channel traffic window (host metadata), executed as one
+            # in-place row copy on the device before the readback is
+            # consumed. Plans may cover planned-not-yet-reconciled
+            # residency: moves relocate verbatim host bytes, and a
+            # divergence rollback only needs ownership consistency.
+            report["migrations"] = self.pool.migrate_tiers()["migrations"]
+
+        if self._fx is not None and self.pool.host.capacity_degraded:
+            self._shed_over_capacity(rec)
+
         # the megastep's outcome — bar token values — is already decided,
         # so the planning view advances now (trajectory-driven retirement).
         for r in live:
+            if r.state == FAILED:
+                continue
             last = traj[r.rid][-1]
             r.speculate(STATE_OF_CODE[last.state], last.consumed,
                         last.n_gen)
@@ -666,6 +697,8 @@ class ServeEngine:
         readback lands, with the deterministic ``done_step``."""
         n = 0
         for r in rec.live:
+            if r.state == FAILED:
+                continue
             steps_r = rec.traj[r.rid]
             if steps_r[-1].state != S_DONE:
                 continue
@@ -697,6 +730,11 @@ class ServeEngine:
             rb = rec.packed.wait()
             try:
                 for r in rec.live:
+                    if r.state == FAILED:
+                        # failed mid-flight (poison/casualty/shed): its
+                        # readback is moot — the request already carries
+                        # its structured error.
+                        continue
                     steps_r = rec.traj[r.rid]
                     toks = [int(rb[r.slot, 3 + t])
                             for t, st in enumerate(steps_r) if st.emitted]
@@ -754,6 +792,107 @@ class ServeEngine:
                     req.blocks_freed = False
             rec.journal = []
 
+    # -- fault recovery (graceful degradation) -------------------------------
+    def _total_blocks(self, r: Request) -> int:
+        """Every KV block this LLM request will ever hold."""
+        return math.ceil((r.prompt_len + r.max_new_tokens)
+                         / self.cfg.block_tokens)
+
+    def _committed_blocks(self) -> int:
+        """Host-capacity commitment: live LLM rows' eventual full block
+        footprint plus whatever else (tenants) holds pool blocks now."""
+        live = [r for r in self.slots
+                if r is not None and r.state != FAILED]
+        need = sum(self._total_blocks(r) for r in live)
+        other = (int(self.pool._allocated.sum())
+                 - sum(len(r.blocks) for r in live))
+        return need + max(0, other)
+
+    def _fail_request(self, r: Request, error: dict, journal: list
+                      ) -> None:
+        """Move one request to the FAILED terminal state: structured
+        ``error`` attached, pool blocks freed (journaled), slot vacated on
+        the host. Its device row is left as it is, as in the reference:
+        no later step reads it, and admission rewrites the slot state in
+        place when the slot is reused. Partial output stays on the
+        request (``engine.failed[rid]``)."""
+        if r.state == FAILED:
+            return
+        r.state = FAILED
+        r.spec = None
+        r.error = dict(error)
+        r.done_step = int(error.get("step", self.step_count))
+        if self.paged and r.blocks and not r.blocks_freed:
+            self.pool.free(r.blocks)
+            r.blocks_freed = True
+            journal.append(("free", r, list(r.blocks)))
+        self._scan_cursor.pop(r.rid, None)
+        if 0 <= r.slot < len(self.slots) and self.slots[r.slot] is r:
+            self.slots[r.slot] = None
+        self.failed[r.rid] = r
+        if self._fx is not None:
+            self._fx.stats["failed"] += 1
+
+    def _service_fault_report(self, rep: dict, step_now: int,
+                              rec: _InFlight) -> None:
+        """Translate one pool transaction's fault report into request
+        consequences: a poisoned or evacuation-casualty block fails its
+        owning LLM request — and only that request. Blocks of non-LLM
+        tenants come back zero-installed (the pool's fresh-install path:
+        the value is gone) and the tenant keeps running."""
+        for kind, blocks in (("poisoned_block", rep.get("poisoned", ())),
+                             ("evacuation_casualty",
+                              rep.get("casualties", ()))):
+            for b in blocks:
+                owner = next(
+                    (r for r in self.slots
+                     if r is not None and r.state != FAILED
+                     and b in r.blocks), None)
+                if owner is not None:
+                    self._fail_request(
+                        owner, {"kind": kind, "block": int(b),
+                                "step": int(step_now)}, rec.journal)
+
+    def _shed_over_capacity(self, rec: _InFlight) -> None:
+        """Deadline-based load shedding once host capacity degrades
+        (channel offline / quarantined slots): while the committed block
+        footprint exceeds surviving capacity, fail live rows — doomed
+        deadlines first, then the largest footprints — and drop queued
+        LLM requests that could never fit even alone."""
+        fx = self._fx
+        cap_live = self.pool.host.live_capacity()
+        committed = self._committed_blocks()
+        now = self.step_count
+        if committed > cap_live:
+            live = [r for r in self.slots
+                    if r is not None and r.state != FAILED]
+
+            def doomed(r: Request) -> bool:
+                return (r.deadline_step is not None
+                        and now + self._steps_until_done(r)
+                        > r.deadline_step)
+
+            for r in sorted(live, key=lambda r: (not doomed(r),
+                                                 -self._total_blocks(r),
+                                                 r.rid)):
+                if committed <= cap_live:
+                    break
+                committed -= self._total_blocks(r)
+                self._fail_request(
+                    r, {"kind": "shed", "step": now,
+                        "committed_blocks": committed
+                        + self._total_blocks(r),
+                        "live_capacity": cap_live}, rec.journal)
+                fx.stats["shed"] += 1
+        for r in list(self.queue.waiting()):
+            if r.tenant == "llm" and self._total_blocks(r) > cap_live:
+                self.queue.remove(r)
+                self._fail_request(
+                    r, {"kind": "shed", "step": now,
+                        "needed_blocks": self._total_blocks(r),
+                        "live_capacity": cap_live}, rec.journal)
+                fx.stats["shed"] += 1
+
     def run(self, max_steps: int | None = None) -> dict[int, np.ndarray]:
         """Drive megasteps until every submitted request completes.
 
@@ -763,7 +902,9 @@ class ServeEngine:
         exactly the steps the K=1 loop would have used. With
         ``cfg.pipeline_depth > 1`` the loop plans and dispatches megastep
         t+1 before reconciling t's deferred readback. Results are
-        bit-exact across depths and widths."""
+        bit-exact across depths and widths. Under fault injection the
+        returned dict holds the survivors; failed requests land in
+        ``self.failed`` with a structured ``Request.error``."""
         limit = max_steps if max_steps is not None else 10_000
         depth = max(1, self.cfg.pipeline_depth)
         stall_cap = max(1, self.cfg.stall_boundaries)
@@ -925,7 +1066,16 @@ class ServeEngine:
         per_adm = max(self._worst_step_blocks(r.prompt_len,
                                               r.max_new_tokens, True)
                       for r in arrived)
-        return min(n_free, headroom // per_adm)
+        budget = min(n_free, headroom // per_adm)
+        if self._fx is not None and self.pool.host.capacity_degraded:
+            # degraded-capacity backpressure: never commit more eventual
+            # host blocks than the surviving channels can hold — place()
+            # is sticky, so every admitted block needs a live slot.
+            per_total = max(self._total_blocks(r) for r in arrived)
+            room = (self.pool.host.live_capacity()
+                    - self._committed_blocks())
+            budget = min(budget, max(0, room) // per_total)
+        return budget
 
     def _admit(self, now: int) -> int:
         free = [i for i, r in enumerate(self.slots) if r is None]
@@ -1080,14 +1230,30 @@ class ServeEngine:
 
     # -- reporting -----------------------------------------------------------
     def stats(self) -> dict:
-        """Dispatch accounting in the reference's schema (the fault and
-        snapshot layers, not ported yet, report zeros)."""
+        """Dispatch accounting in the reference's schema, with the fault
+        injector's counters (zeros without one; the snapshot layer, not
+        ported yet, reports zeros)."""
         return {"steps": self.step_count,
                 "host_dispatches": self.host_dispatches,
                 "megasteps": self.megasteps,
                 "host_blocked": self.host_blocked,
-                "faults": fresh_fault_stats(),
+                "faults": (dict(self._fx.stats) if self._fx is not None
+                           else fresh_fault_stats()),
                 "snapshot": fresh_snapshot_stats()}
+
+    def reset_stats(self) -> None:
+        """Zero the counters without touching the clocks: ``step_count``
+        and ``megasteps`` keep running (the fault plan and admission
+        timing key on them), while dispatch/bubble counters, pool
+        billing, fault stats and the CAX scope tree restart."""
+        self.host_dispatches = 0
+        self.host_blocked = 0
+        if self.paged:
+            self.pool.reset_stats()
+        if self._fx is not None:
+            self._fx.stats.clear()
+            self._fx.stats.update(fresh_fault_stats())
+        self.telemetry.reset()
 
     def paging_stats(self) -> dict:
         if not self.paged:

@@ -1,7 +1,7 @@
-"""Vectorized KV block pool — the serving memory hierarchy (flat pool).
+"""Vectorized tiered KV block pool — the serving memory hierarchy.
 
-Port of the flat ``PagedKVPool`` of ``repro/serve/kv_pool.py``. One pool
-is shared by every request in the batch:
+Port of ``PagedKVPool`` of ``repro/serve/kv_pool.py``. One pool is shared
+by every request in the batch:
 
   * residency, the slot map and the LRU clocks are **host numpy** arrays
     (``slot_of``, ``block_at``, ``last_use``): they never feed device
@@ -15,13 +15,21 @@ is shared by every request in the batch:
     transaction: ONE ``DuplexOffloadEngine`` plan per hint scope and ONE
     kernel launch per scope — the fused ``duplex_kv_stream`` when both
     directions carry blocks, or the single-direction dequant-only /
-    quant-only half when one stream is empty.
+    quant-only half when one stream is empty;
+  * ``tiers`` backs the host side with heterogeneous DDR5/CXL channels
+    (``serve/tiers.py``): hint-driven placement, per-channel billing,
+    ``tier_speedup`` and boundary migrations (``migrate_tiers``);
+  * ``faults`` attaches a ``core.faults.FaultInjector``: checksums
+    stamped at page-out and verified at page-in, poisoned slots
+    quarantined, offline channels evacuated.
 
 Where the reference donates the tier buffers to a jitted commit and
-rebinds them, the port updates them in place. The reference's
-``mode="drop"`` scatters silently drop out-of-range sentinel rows; the
-port drops them explicitly on the host before indexing. ``flush_dirty``
-(the snapshot barrier) and the tiered host side are not ported yet.
+rebinds them, the port updates them in place (``index_copy_``), so the
+tensors stay the same objects a captured CUDA graph may read. The
+reference's ``mode="drop"`` scatters silently drop out-of-range sentinel
+rows; the port drops them explicitly on the host before indexing.
+``flush_dirty`` and ``snapshot_state`` / ``load_state`` (the snapshot
+layer) and the trace hooks are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,6 +63,10 @@ def _fresh_path_stats() -> dict:
 #: streams, and the billing, have the reference's shapes).
 STAGE_BLOCKS = 2
 
+#: most host-tier migrations one megastep boundary plans (the
+#: reference's default ``migrate_max``).
+MIGRATE_MAX = 8
+
 
 def _pad_rows(a: torch.Tensor, m: int) -> torch.Tensor:
     if a.shape[0] == m:
@@ -65,18 +77,29 @@ def _pad_rows(a: torch.Tensor, m: int) -> torch.Tensor:
 
 
 class PagedKVPool:
-    """Block-table KV pool: HBM working set + int8 host side.
+    """Block-table KV pool: HBM working set + tiered int8 host side.
 
     ``n_blocks`` logical blocks of ``block_shape = (tokens, kv_dims)``;
     at most ``hbm_blocks`` are HBM-resident at a time. Logical block ids are
     allocated per request (``alloc``/``free``) or caller-managed. The
     tensors live on ``device`` (``cuda`` unless the caller passes
     ``"cpu"``).
+
+    ``tiers`` backs the host side with heterogeneous memory channels
+    (``serve.tiers.TieredHostPool``): a ``"ddr5:2,cxl:2"`` spec string or
+    a (kind, ChannelModel) sequence. Spilled blocks get a host *slot*
+    through the hint-driven weighted-interleave placement map, traffic is
+    billed per channel, ``tier_speedup()`` compares against the all-DDR5
+    serial counterfactual, and ``migrate_tiers()`` (called by the engine
+    at megastep boundaries) rebalances mismatched blocks through the idle
+    minor direction of the CXL links. ``tiers=None`` is the flat
+    single-channel pool with identity placement.
     """
 
     def __init__(self, n_blocks: int, hbm_blocks: int, block_shape,
                  hints: HintTree | None = None,
                  link: channel_lib.ChannelModel = channel_lib.PCIE_HOST,
+                 tiers=None, faults=None,
                  device: torch.device | str = "cuda"):
         if hbm_blocks < 1:
             raise ValueError("need at least one HBM block")
@@ -85,8 +108,12 @@ class PagedKVPool:
         self.hbm_capacity = hbm_blocks
         self.block_shape = tuple(block_shape)        # (tokens, kv_dims)
         block_bytes = float(np.prod(self.block_shape) * 2)  # bf16
-        self.host = TieredHostPool.flat(n_blocks, link, block_bytes)
-        self.tiered = False
+        if tiers is None:
+            self.host = TieredHostPool.flat(n_blocks, link, block_bytes)
+        else:
+            self.host = TieredHostPool.from_spec(n_blocks, tiers,
+                                                 block_bytes)
+        self.tiered = self.host.tiered
         self.hbm = torch.zeros((hbm_blocks,) + self.block_shape,
                                dtype=torch.bfloat16, device=self.device)
         self.host_q = torch.zeros((self.host.total_slots,)
@@ -110,14 +137,28 @@ class PagedKVPool:
         self.engine = DuplexOffloadEngine(
             link=link, hints=hints or default_serving_hints())
         self.stats = _fresh_stats()
+        # fault injection (core.faults.FaultInjector). With no injector
+        # attached none of the fault machinery exists: no checksum
+        # arrays, no per-transaction tick, no branch past one ``is None``.
+        self._fx = faults
+        self._csum_data = self._csum_stamp = None
+        self._stamp = 0
+        if faults is not None:
+            self.host.attach_faults(faults)
+            # per-block host-copy checksums (host numpy), stamped at
+            # page-out and verified at page-in (modelled: a poison bumps
+            # _csum_data so the verify mismatches, like a real CRC).
+            self._csum_data = np.zeros((n_blocks,), np.int64)
+            self._csum_stamp = np.zeros((n_blocks,), np.int64)
 
     def _idx(self, ids) -> torch.Tensor:
         """Host index array -> int64 index tensor on the pool's device."""
         return to_device(np.asarray(ids, np.int64).reshape(-1), self.device)
 
     def attach_telemetry(self, registry) -> None:
-        """Route CAX scope attribution into ``registry`` (the planner
-        records each transaction's bytes under its hint scope)."""
+        """Route CAX scope attribution into ``registry``: the flat planner
+        records through the offload engine; the tiered path (which skips
+        plan construction) attributes its byte volumes directly."""
         self.engine.telemetry = registry
 
     def _flat_bill_totals(self, read_blocks: int, write_blocks: int,
@@ -252,6 +293,12 @@ class PagedKVPool:
                 f"{self.hbm_capacity}; cap the per-step working set")
         self.stats["steps"] += 1
         report = {"page_ins": 0, "page_outs": 0}
+        if self._fx is not None:
+            # quarantined blocks lose _has_host and fall through to the
+            # fresh-install path below (zero-filled rows): reads stay
+            # legal, the data loss is the modelled consequence, and the
+            # engine fails the owning request off this report.
+            report.update(self._service_faults(all_needed))
         if all_needed.size:
             n_missing = int((self.slot_of[all_needed] < 0).sum())
             free_slots = np.flatnonzero(self.block_at < 0)
@@ -278,6 +325,88 @@ class PagedKVPool:
                 report["page_outs"] += r["page_outs"]
         self._touch(all_needed)
         return report
+
+    # -- fault servicing (one pass per transaction, injector attached) ------
+    def _service_faults(self, all_needed: np.ndarray) -> dict:
+        """Advance the fault clock and service armed events: corrupt the
+        host copies of newly poisoned blocks, hot-unplug newly offline
+        channels (placement write-off + emergency evacuation), and
+        verify checksums on every host copy this transaction is about to
+        page in — mismatches quarantine the host slot and surface in the
+        report for the engine to fail the owning request."""
+        fx = self._fx
+        fx.tick()
+        rep = {"poisoned": [], "offline": [], "casualties": [],
+               "evacuated": 0}
+        for b in fx.drain_poison():
+            if 0 <= b < self.n_blocks and self._has_host[b]:
+                self._csum_data[b] += 1     # modelled media corruption
+            else:
+                fx.rearm_poison(b)          # nothing to corrupt yet
+        for c in fx.drain_offline():
+            if self.host.identity:
+                raise RuntimeError(
+                    "offline fault on a flat (single-channel) host pool "
+                    "— configure tiers to model channel loss")
+            self.host.set_offline(c)
+            casualties, moved = self._evacuate_channel(c)
+            rep["offline"].append(c)
+            rep["casualties"].extend(casualties)
+            rep["evacuated"] += moved
+        if all_needed.size:
+            cand = all_needed[(self.slot_of[all_needed] < 0)
+                              & self._has_host[all_needed]]
+            bad = cand[self._csum_data[cand] != self._csum_stamp[cand]]
+            if bad.size:
+                hs = self.host.slot_of[bad]
+                self.host.quarantine(hs[hs >= 0])
+                self._has_host[bad] = False
+                self._dirty[bad] = False
+                fx.stats["quarantined"] += int(bad.size)
+                rep["poisoned"] = bad.tolist()
+        return rep
+
+    def _evacuate_channel(self, c: int) -> tuple[list[int], int]:
+        """Move a dying channel's live host rows onto surviving channels
+        (``TieredHostPool.evacuate`` picks destinations and bills the
+        legs); the data copy is the row move boundary migrations use.
+        Blocks with no surviving slot lose their host copy — the engine
+        fails their owners off the report. Returns ``(casualty_blocks,
+        n_moved)``."""
+        mig0 = self.host.migrate_us
+        blocks, src, dst, casualties = self.host.evacuate(c)
+        # the evacuation legs billed on the host channels also land in
+        # the pool-level migration clock tier_stats() reports.
+        self.stats["migrate_us"] += self.host.migrate_us - mig0
+        n = int(blocks.size)
+        if n:
+            self._move_rows(src, dst)
+        lost = []
+        if casualties:
+            ca = np.asarray(casualties, np.int32)
+            self._has_host[ca] = False
+            # HBM-resident casualties still hold valid data on-device:
+            # mark them dirty so the next eviction re-writes a host copy
+            # (losing the slot, not the bytes). Non-resident casualties
+            # ARE data loss — report them so the engine fails the owner.
+            resident = ca[self.slot_of[ca] >= 0]
+            gone = ca[self.slot_of[ca] < 0]
+            self._dirty[resident] = True
+            self._dirty[gone] = False
+            lost = [int(b) for b in gone]
+        self._fx.stats["evacuated"] += n
+        self._fx.stats["recovered"] += n
+        return lost, n
+
+    def _move_rows(self, src: np.ndarray, dst: np.ndarray) -> None:
+        """Copy quantized host rows ``src -> dst`` verbatim (int8 payload
+        + scales: moves are bit-exact), in place: the gather completes
+        before the scatter, and ``host_q`` / ``host_scale`` stay the same
+        tensors. Dispatch only — no device-to-host sync."""
+        si, di = self._idx(src), self._idx(dst)
+        self.host_q.index_copy_(0, di, self.host_q.index_select(0, si))
+        self.host_scale.index_copy_(0, di,
+                                    self.host_scale.index_select(0, si))
 
     def _pick_victims(self, k: int, keep: np.ndarray) -> np.ndarray:
         """k least-recently-used resident blocks outside ``keep``."""
@@ -315,22 +444,56 @@ class PagedKVPool:
             pref = self.host.preferred_kind(resolved)
             in_hslots = self.host.place(stale, pref)
             out_hslots = self.host.place(outs, pref, refresh=False)
-            plan = self.engine.plan_kv_paging(
-                needed_host_blocks=stale.tolist(),
-                evict_hbm_blocks=out_slots.tolist(),
-                free_hbm_blocks=np.concatenate(
-                    [free_slots, silent_slots]).tolist(),
-                host_dst_blocks=outs.tolist(),
-                block_bytes=block_bytes,
-                hint_path=hint_path)
-            serial = plan_serial(
-                [s.page_in for s in plan.slots if s.page_in],
-                [s.page_out for s in plan.slots if s.page_out],
-                self.engine.link)
-            duplex_us = plan.modelled_time_us()
-            serial_us = serial.modelled_time_us()
-            self._flat_bill_totals(int(stale.size), int(outs.size),
-                                   duplex_us)
+            if self.tiered:
+                # per-channel billing: each channel's share of the
+                # transaction under ITS model (half-duplex DDR5 with
+                # turnaround, duplex-overlapped CXL), channels parallel;
+                # plus the all-DDR5 serial counterfactual tier_speedup
+                # measures against. (The flat pool's plan construction is
+                # skipped: its modelled times would be discarded.)
+                ch_rd, ch_wr, duplex_us, serial_us = \
+                    self.host.bill_transaction(in_hslots, out_hslots,
+                                               co_issued=bool(duplex_ok))
+                self.stats["tier_us"] += duplex_us
+                self.stats["ddr5_us"] += self.host.ddr5_baseline_us(
+                    ch_rd, ch_wr)
+                if self.engine.telemetry is not None:
+                    # the tiered path skips plan construction, so the
+                    # CAX scope attribution the flat planner does in
+                    # ``plan_kv_paging`` happens here instead.
+                    self.engine.telemetry.attribute(
+                        hint_path,
+                        read_bytes=float(stale.size) * block_bytes,
+                        write_bytes=float(outs.size) * block_bytes)
+            else:
+                plan = self.engine.plan_kv_paging(
+                    needed_host_blocks=stale.tolist(),
+                    evict_hbm_blocks=out_slots.tolist(),
+                    free_hbm_blocks=np.concatenate(
+                        [free_slots, silent_slots]).tolist(),
+                    host_dst_blocks=outs.tolist(),
+                    block_bytes=block_bytes,
+                    hint_path=hint_path)
+                serial = plan_serial(
+                    [s.page_in for s in plan.slots if s.page_in],
+                    [s.page_out for s in plan.slots if s.page_out],
+                    self.engine.link)
+                duplex_us = plan.modelled_time_us()
+                serial_us = serial.modelled_time_us()
+                if self._fx is not None:
+                    # flat pool = one channel (index 0): a degrade window
+                    # scales both modelled times inversely (pure
+                    # bandwidth scaling) and transient retries bill their
+                    # failed attempts + backoff into both views.
+                    factor = self._fx.bandwidth_factor(0)
+                    if factor < 1.0:
+                        duplex_us /= factor
+                        serial_us /= factor
+                    extra = self._fx.retry_penalty_us(0, duplex_us)
+                    duplex_us += extra
+                    serial_us += extra
+                self._flat_bill_totals(int(stale.size), int(outs.size),
+                                       duplex_us)
             bp = self.stats["by_path"].setdefault(hint_path,
                                                   _fresh_path_stats())
             for st, key, val in (
@@ -395,6 +558,11 @@ class PagedKVPool:
         if outs.size:
             self._has_host[outs] = True
             self._dirty[outs] = False   # host copy now matches
+            if self._fx is not None:
+                # stamp the page-out checksum; verified at page-in.
+                self._stamp += 1
+                self._csum_data[outs] = self._stamp
+                self._csum_stamp[outs] = self._stamp
         self.slot_of[missing] = dst
         self.block_at[dst] = missing
         return {"page_ins": int(stale.size), "page_outs": int(outs.size)}
@@ -440,16 +608,55 @@ class PagedKVPool:
             raise ValueError("write to non-resident block; call step() first")
         return np.flatnonzero(valid), slots, real
 
+    # -- host-tier migrations (megastep boundaries) -------------------------
+    def migrate_tiers(self) -> dict:
+        """Rebalance host-tier placement at a megastep boundary.
+
+        Planning is pure host metadata (the hotness clock ``last_use``,
+        the placement map, the boundary window's per-channel traffic);
+        execution is one in-place row gather/scatter — dispatch only, so
+        a boundary with migrations adds no host sync. CXL legs ride each
+        link's idle minor direction (budgeted from the window the plan
+        just closed); the half-duplex legs' modelled time lands in
+        ``stats["migrate_us"]``. Data moves verbatim (quantized rows +
+        scales), so served results are bit-exact whether or not
+        migrations run.
+        """
+        if not self.tiered:
+            return {"migrations": 0}
+        plan = self.host.plan_migrations(self.last_use, self._has_host,
+                                         MIGRATE_MAX)
+        if len(plan):
+            try:
+                self._move_rows(plan.src_slots, plan.dst_slots)
+            except Exception:
+                # the plan reserved its destination slots; hand them back
+                # so a failed dispatch cannot leak host-tier capacity.
+                self.host.abandon(plan)
+                raise
+        self.host.apply(plan)   # also closes the traffic window
+        self.stats["migrations"] += len(plan)
+        self.stats["migrate_us"] += plan.migrate_us
+        if len(plan) and self.engine.telemetry is not None:
+            bb = self.host.block_bytes
+            self.engine.telemetry.attribute(
+                "/serve/tier_migrate", read_bytes=len(plan) * bb,
+                write_bytes=len(plan) * bb)
+        return {"migrations": len(plan)}
+
     # -- reporting ---------------------------------------------------------
     def tier_speedup(self) -> float:
-        """1.0: a flat pool has no tier counterfactual to beat."""
+        """Modelled all-DDR5-serial vs tiered link-time ratio for the
+        pool's real paging traffic (1.0 for a flat pool — there is no
+        counterfactual to beat)."""
         if self.stats["tier_us"] == 0:
             return 1.0
         return self.stats["ddr5_us"] / self.stats["tier_us"]
 
     def tier_stats(self) -> dict:
-        """The reference's unified per-channel schema (one channel, tier
-        fields zeroed)."""
+        """Per-channel placement/traffic/migration accounting plus the
+        tier A/B summary. Flat pools emit the same keys (their single
+        channel, zeroed tier fields)."""
         return {"tiered": self.tiered,
                 "channels": self.host.stats(),
                 "migrations": self.stats["migrations"],
@@ -466,3 +673,7 @@ class PagedKVPool:
         if st["duplex_us"] == 0:
             return 1.0
         return st["serial_us"] / st["duplex_us"]
+
+    def reset_stats(self) -> None:
+        self.stats = _fresh_stats()
+        self.host.reset_stats()

@@ -26,6 +26,11 @@ from repro_torch.core import policies as policies_lib
 from repro_torch.core.hints import HintTree, default_serving_hints
 
 WAITING, PREFILL, DECODE, DONE = "waiting", "prefill", "decode", "done"
+#: terminal failure state (fault recovery: poisoned block, evacuation
+#: casualty, capacity shedding). A FAILED request carries a structured
+#: ``error`` dict and whatever partial output it produced; the engine
+#: keeps serving everyone else.
+FAILED = "failed"
 
 # Device-visible state codes: the engine keeps per-slot request state in
 # int32 device tensors and mirrors it back onto Request objects once per
@@ -74,6 +79,13 @@ class Request:
     slot: int = -1                      # engine batch slot while running
     admitted_step: int = -1
     done_step: int = -1
+    #: structured failure record once ``state == FAILED``:
+    #: ``{"kind": "poisoned_block"|"evacuation_casualty"|"shed",
+    #:    "step": <engine step>, ...kind-specific fields}``.
+    error: dict | None = None
+    #: optional completion deadline (engine step). Under degraded
+    #: capacity the engine sheds doomed-deadline requests first.
+    deadline_step: int | None = None
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -281,6 +293,18 @@ class RequestQueue:
         self._state = self.policy.update(self.params, self._state, fb)
         self._reset_slot_state(take)
         return admitted
+
+    def remove(self, req: Request) -> bool:
+        """Withdraw a still-waiting request (fault shedding: under
+        degraded capacity the engine removes queued requests that can
+        never fit the surviving host tiers). Resets the vacated slot's
+        policy state exactly like an admission would."""
+        for i, cur in enumerate(self._slots):
+            if cur is req:
+                self._slots[i] = None
+                self._reset_slot_state([i])
+                return True
+        return False
 
     def _reset_slot_state(self, idx: list[int]) -> None:
         """Reinitialize per-slot policy state for vacated waiting slots —

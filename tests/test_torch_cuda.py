@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.device import sync_watch  # noqa: E402
 from repro_torch.kernels import duplex_stream as ds  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -488,3 +489,84 @@ else:
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("raised:"), out.stdout + out.stderr[-2000:]
+
+
+# ---------------------------------------------------------------------------
+# the tiered host pool and the fault layer on the card
+# ---------------------------------------------------------------------------
+
+def _tier_fault_run(api, params, prompts, graphs, plan):
+    """One SMOKE run on a ``ddr5:1,cxl:2`` host tier beside a KV-store
+    tenant (its scopes prefer DDR5 and CXL, so blocks migrate), with a
+    fault plan or without, under the sync watch. Returns the readings the
+    graphed and eager runs must share, the engine, the static tensors
+    before the run, and the sites of the syncs the run raised."""
+    from repro_torch.core import faults as faults_lib
+    from repro_torch.serve import EngineConfig, KVStoreTenant, ServeEngine
+    fx = None if plan is None else faults_lib.FaultInjector(
+        faults_lib.parse_fault_plan(plan), seed=5)
+    eng = ServeEngine(api, params, EngineConfig(
+        max_batch=3, cache_len=64, block_tokens=4, hbm_blocks=10,
+        pool_blocks=64, prefill_chunk=3, max_queue=16, megastep=4,
+        pipeline_depth=2, tiers="ddr5:1,cxl:2", faults=fx, device="cuda"),
+        _graphs=None if graphs else False)
+    kv = eng.add_tenant(KVStoreTenant(n_slots=2, ops_per_step=2,
+                                      store_blocks=12))
+    kv.preload(12)
+    kv.submit("gaussian", n_steps=24)
+    kv.submit("sequential", n_steps=24, phase="read")
+    reqs = [eng.submit(p, 9, arrival_step=2 * i)
+            for i, p in enumerate(prompts)]
+    static = [*eng._dev.values(), *eng.cache.values(), eng.pool.hbm,
+              eng.pool.host_q, eng.pool.host_scale]
+    ds.reset_launches()
+    torch.cuda.synchronize()
+    with sync_watch() as syncs:
+        outs = eng.run(max_steps=400)
+    torch.cuda.synchronize()
+    readings = dict(
+        served={i: outs[r.rid].tolist() for i, r in enumerate(reqs)
+                if r.rid in outs},
+        failed={i: r.error for i, r in enumerate(reqs)
+                if r.rid in eng.failed},
+        stats=eng.stats(), paging=eng.paging_stats(),
+        ops=kv.ops_done, launches=dict(ds.LAUNCHES))
+    return readings, eng, static, dict(syncs)
+
+
+@pytest.mark.parametrize("plan", [
+    None, "degrade:2@4+20=0.5,transient:1@6+40=0.4,poison:0@9,offline:2@14"])
+def test_tiered_and_faulted_engines_graphed_equal_eager(cuda, plan):
+    """Tiered placement, boundary migrations and (with a plan) every
+    recoverable fault kind, graphed against eager on the card: the same
+    survivors, failed records, stats and paging stats; survivors equal
+    the static-batch oracle; the static tensors are the same objects
+    after the run; and the graphed run raises no device-to-host sync."""
+    from repro_torch.models import registry
+    from repro_torch.serve import reference_decode
+    api = registry.build("smollm-135m", smoke=True, device="cuda")
+    params = api.init(torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(1).integers(
+        0, api.cfg.vocab, (6, 7)).astype(np.int32)
+    eager, _, _, _ = _tier_fault_run(api, params, prompts, False, plan)
+    graphed, eng, static, syncs = _tier_fault_run(api, params, prompts,
+                                                  True, plan)
+    assert graphed == eager
+    assert syncs == {}
+    now = [*eng._dev.values(), *eng.cache.values(), eng.pool.hbm,
+           eng.pool.host_q, eng.pool.host_scale]
+    assert all(a is b for a, b in zip(static, now))
+    for lo in range(0, len(prompts), 3):
+        want = reference_decode(api, params, prompts[lo:lo + 3], 9,
+                                cache_len=64).cpu().numpy()
+        for j in range(want.shape[0]):
+            if lo + j in graphed["served"]:
+                assert graphed["served"][lo + j] == want[j].tolist()
+    tiers = graphed["paging"]["tiers"]
+    assert tiers["tiered"] and tiers["migrations"] > 0
+    assert graphed["launches"]["duplex_kv_stream"] > 0
+    faults = graphed["stats"]["faults"]
+    if plan is not None:
+        assert faults["injected"] == 4 and faults["retried"] > 0
+        assert faults["evacuated"] > 0
+    eng.pool.check_invariants()

@@ -35,12 +35,16 @@ def test_importing_the_port_pulls_in_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules\n"
         f"    if k.split('.')[0] in {FORBIDDEN!r})\n"
-        "print(len(mods), bad)\n")
+        "import json; print(json.dumps([mods, bad]))\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, check=True)
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15
-    assert bad == "[]"
+    mods, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(mods) >= 15
+    assert bad == []
+    # the tiered host pool and the fault layer are among the scanned
+    for m in ("repro_torch.core.prng", "repro_torch.core.faults",
+              "repro_torch.serve.tiers"):
+        assert m in mods
 
 
 def _imports(path: Path) -> set[str]:
