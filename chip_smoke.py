@@ -59,6 +59,20 @@ read just after:
     same survivors, failed records and fault stats, survivors token-exact,
     every evacuated row byte-equal to its value before the move, each
     store block its value or lost to a fault;
+  * the traced path: the tiered run and the fault-plan run again with
+    the tracing plane on (``EngineConfig(trace=True)``), in turns with
+    untraced runs: the same tokens, stats, paging, tier and fault stats
+    and kernel launches, no host sync, every channel track's
+    modelled-clock intervals monotonic and disjoint, its totals and
+    ``duplex_util`` equal to the CPU rehearsal's (``TRACE_EXPECT``), and
+    the Perfetto export under ``build/`` read back;
+  * the simulator path: ``core.scheduler`` at the JAX package's simulator
+    benchmarks' sizes (the LLM prefill and decode A/Bs, the microbenchmark
+    sweep, the characterization cross-check on every preset, all six
+    policies on the decode mix), each replayed from CUDA graphs of its
+    steps with no host sync, held against the same simulation on the CPU
+    (a subprocess started first, ``--cpu-sims``) and, for the six
+    policies, against its eager steps on the card bit for bit;
   * the RWKV serving path: rwkv6-7b FULL through ``ServeEngine`` with
     paging gated off by its recurrent cache, on the step graphs, every
     request token for token against ``reference_decode``, then with the
@@ -83,6 +97,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -136,6 +151,48 @@ FAULT_PLAN = ("degrade:2@10+40=0.5,transient:3@20+60=0.3,poison:40@60,"
               "offline:3@80")
 FAULT_SEED = 0
 CHAOS_SEED, CHAOS_HORIZON, CHAOS_EVENTS = 3, 160, 4
+# the traced tiered and fault-plan runs' modelled clock: horizon and per
+# channel busy / read / write shares, predicted by a CPU rehearsal at the
+# full width's byte counts (host arithmetic, so the card must agree)
+TRACE_KEYS = ("util", "rd_util", "wr_util", "busy_us", "read_bytes",
+              "write_bytes", "txns")
+TRACE_EXPECT = {
+    "tiered": {"model_us": 1444.234, "duplex_util": {
+        "cxl:2": dict(zip(TRACE_KEYS, (0.5817, 0.3948, 0.3191, 840.096,
+                                     36495360.0, 29491200.0, 82))),
+        "cxl:3": dict(zip(TRACE_KEYS, (0.5725, 0.3869, 0.3111, 826.848,
+                                     35758080.0, 28753920.0, 82))),
+        "ddr5:0": dict(zip(TRACE_KEYS, (0.252, 0.0957, 0.1449, 363.942,
+                                     8847360.0, 13271040.0, 51))),
+        "ddr5:1": dict(zip(TRACE_KEYS, (0.2553, 0.0917, 0.149, 368.677,
+                                     8478720.0, 13639680.0, 49))),
+    }},
+    "faults": {"model_us": 2841.801, "duplex_util": {
+        "cxl:2": dict(zip(TRACE_KEYS, (0.5208, 0.3162, 0.2959, 1480.032,
+                                     56401920.0, 50135040.0, 94))),
+        "cxl:3": dict(zip(TRACE_KEYS, (0.4399, 0.0993, 0.075, 1249.968,
+                                     18063360.0, 13639680.0, 41))),
+        "ddr5:0": dict(zip(TRACE_KEYS, (0.1492, 0.0608, 0.0818, 424.1,
+                                     11059200.0, 14745600.0, 58))),
+        "ddr5:1": dict(zip(TRACE_KEYS, (0.1538, 0.0608, 0.0839, 436.935,
+                                     11059200.0, 15114240.0, 55))),
+    }},
+}
+
+# the simulator path: the JAX package's simulator benchmarks rebuilt here
+# (benchmarks/llm_inference.py, microbench.py, characterization.py) at
+# their full sizes
+SIM_RATIOS = (0.1, 0.3, 0.5, 0.7, 0.9)
+SIM_POLICIES = ("cfs", "ddr_batching", "round_robin", "threshold",
+                "timeseries", "hinted")
+# the CPU tests' tolerances (tests/test_torch_scheduler.py says why): the
+# summaries of a run, and of a lockstep run (identical phased streams
+# under timeseries, where last-bit differences hand a run slot to another
+# identical stream)
+SIM_SUMMARY_RTOL, SIM_LOCKSTEP_RTOL = 1e-5, 5e-4
+SIM_TIMED = "llm/decode/hinted"      # the case timed graphed and eager
+SIM_EAGER = (SIM_TIMED, "llm/decode/cfs")   # also stepped eagerly
+SIM_BLOCKS = (8, 16, 64)           # graph block sizes timed on it
 
 STREAMS = ("duplex_kv_stream", "quant_stream", "dequant_stream")
 # the shape each serving kernel is handed most often on its path (the
@@ -1697,7 +1754,8 @@ def serve_tenants(api, params, l2_shapes: Counter) -> dict:
     return launches
 
 
-def tiered_run(api, params, prompts, graphs: bool, plan=None) -> dict:
+def tiered_run(api, params, prompts, graphs: bool, plan=None,
+               trace: bool = False) -> dict:
     """One run of the tiered path (``TIER_SPEC``, the KV-store tenant of
     ``TIER_KV``) with the main path's LLM requests, under a fault plan or
     without: the graphed run under the sync watch. Every boundary's
@@ -1719,7 +1777,8 @@ def tiered_run(api, params, prompts, graphs: bool, plan=None) -> dict:
         fx = faults_lib.FaultInjector(events, seed=FAULT_SEED)
     eng = ServeEngine(api, params, EngineConfig(
         **SERVE, max_queue=N_REQUESTS + 8, tiers=TIER_SPEC, faults=fx,
-        device="cuda"), _graphs=None if graphs else False)
+        trace=True if trace else None, device="cuda"),
+        _graphs=None if graphs else False)
     kv = eng.add_tenant(KVStoreTenant(**TIER_KV))
     kv.preload(TIER_KV["store_blocks"])
     for pattern, phase in TIER_STREAMS:
@@ -1912,6 +1971,249 @@ def serve_faults(api, params, main: dict) -> dict:
     return out
 
 
+def check_tracks(tracer, what: str) -> None:
+    """Every channel track's modelled-clock intervals in order, disjoint,
+    and inside the horizon."""
+    for track, ivals in tracer.timelines.items():
+        end = -1.0
+        for t0, dur, _, _ in ivals:
+            if t0 < end - 1e-6 or dur < 0.0:
+                fail(f"{what}: track {track} overlaps or runs backwards "
+                     f"at {t0}")
+            end = t0 + dur
+        if end > tracer.model_us + 1e-6:
+            fail(f"{what}: track {track} ends past the horizon")
+
+
+def serve_traced(api, params) -> dict:
+    """The tiered path and the fault-plan path with the tracing plane on,
+    in turns with untraced runs (the tiered path untraced, traced, traced,
+    untraced; the plan untraced, traced): every reading equal, no sync,
+    the channel tracks monotonic, the modelled clock as the CPU rehearsal
+    predicts, and the Perfetto export read back."""
+    prompts = np.random.default_rng(1).integers(
+        0, api.cfg.vocab, (N_REQUESTS, PROMPT_LEN)).astype(np.int32)
+    out = {}
+    for what, plan, order in (
+            ("tiered", None, (False, True, True, False)),
+            ("faults", FAULT_PLAN, (False, True))):
+        runs = [tiered_run(api, params, prompts, True, plan, trace=t)
+                for t in order]
+        base = runs[0]["readings"]
+        for traced, run in zip(order, runs):
+            if run["readings"] != base:
+                bad = [k for k in base if run["readings"][k] != base[k]]
+                fail(f"traced {what}: a run (traced={traced}) differs "
+                     f"from the untraced one in {bad}")
+            if run["syncs"]:
+                fail(f"traced {what}: a run (traced={traced}) synced "
+                     f"with the host: {run['syncs']}")
+        eng = runs[order.index(True)]["engine"]
+        tracer = eng.tracer
+        check_tracks(tracer, f"traced {what}")
+        # the host-deterministic part: the modelled horizon and each
+        # channel's shares, busy time, bytes and transactions
+        reading = {"model_us": round(tracer.model_us, 3),
+                   "duplex_util": tracer.duplex_util()}
+        if reading != TRACE_EXPECT[what]:
+            fail(f"traced {what}: the modelled clock {reading} differs "
+                 f"from the CPU rehearsal's {TRACE_EXPECT[what]}")
+        path = ROOT / "build" / f"trace_{what}.json"
+        eng.export_trace(str(path))
+        doc = json.loads(path.read_text())
+        evs = doc["traceEvents"]
+        n_x = sum(e["ph"] == "X" for e in evs)
+        if n_x != len(tracer.spans) + sum(
+                len(v) for v in tracer.timelines.values()) or \
+                sum(e["ph"] == "i" for e in evs) != len(tracer.instants):
+            fail(f"traced {what}: the Perfetto file lost events")
+        tokens = sum(len(t) for t in base["served"].values())
+        turns = [{"traced": t, "tokens_per_s": tokens / r["wall"],
+                  "wall_s": r["wall"]} for t, r in zip(order, runs)]
+        summary = tracer.summary()
+        out[what] = {"phase_us": summary["phase_us"], **reading,
+                     "events": summary["events"],
+                     "instants": summary["instants"], "turns": turns,
+                     "perfetto": str(path.relative_to(ROOT)),
+                     "perfetto_events": len(evs)}
+        print(json.dumps({f"traced_{what}": out[what]}), flush=True)
+    return out
+
+
+def sim_cases() -> dict:
+    """Every simulation of the simulator path, by name: (channel preset,
+    stream specs, policy, SimConfig fields, lockstep)."""
+    from repro_torch.core import channel as ch
+    from repro_torch.core.requests import StreamSpec
+    prefill = [StreamSpec(name=f"chunk{i}", pattern="uniform",
+                          offered_gbps=80.0 / 8, read_fraction=0.95)
+               for i in range(8)]
+    decode = [StreamSpec(name=f"layer{i}", pattern="llm_decode",
+                         offered_gbps=120.0 / 8, phase_steps=32)
+              for i in range(8)]
+    cases = {}
+    for name, specs in (("prefill", prefill), ("decode", decode)):
+        for pol in ("cfs", "hinted"):
+            cases[f"llm/{name}/{pol}"] = ("cxl-512gb", specs, pol,
+                                          {"steps": 768}, False)
+    for pattern in ("phased", "gaussian"):
+        seq = pattern == "phased"
+        for rf in SIM_RATIOS:
+            specs = [StreamSpec(name=f"{pattern}{i}", pattern=pattern,
+                                offered_gbps=64.0 / 8, read_fraction=rf,
+                                phase_steps=64 if seq else 48 + 16 * (i % 4),
+                                sequential=seq) for i in range(8)]
+            for pol in ("cfs", "timeseries"):
+                cases[f"micro/{pattern}/{rf}/{pol}"] = (
+                    "cxl-512gb", specs, pol,
+                    {"steps": 1024, "sequential": seq},
+                    seq and pol == "timeseries")
+    for name, c in ch.PRESETS.items():
+        specs = [StreamSpec(name=f"w{i}", pattern="uniform",
+                            offered_gbps=c.read_bw, read_fraction=0.55)
+                 for i in range(4)]
+        cases[f"char/{name}"] = (name, specs, "cfs", {"steps": 512}, False)
+    for pol in SIM_POLICIES:
+        if pol not in ("cfs", "hinted"):
+            cases[f"llm/decode/{pol}"] = ("cxl-512gb", decode, pol,
+                                          {"steps": 768}, False)
+    return cases
+
+
+def run_sim(case, device: str, graphs=None):
+    from repro_torch.core import channel as ch
+    from repro_torch.core import scheduler as sched
+    name, specs, pol, kw, _ = case
+    return sched.simulate(ch.PRESETS[name], specs, pol,
+                          sim=sched.SimConfig(**kw), device=device,
+                          _graphs=graphs)
+
+
+def cpu_sims(path: str) -> int:
+    """The simulator path's simulations on the CPU (``--cpu-sims``, run as
+    a subprocess beside the card's work): their summaries, as JSON."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import scheduler as sched
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    out = {key: sched.summarize(run_sim(case, "cpu"))
+           for key, case in sim_cases().items()}
+    Path(path).write_text(json.dumps(
+        {"summaries": out, "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def start_cpu_sims() -> tuple:
+    """Start ``cpu_sims`` in a subprocess that cannot see the card."""
+    path = ROOT / "build" / "sim_cpu.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--cpu-sims", str(path)], env=env)
+    return proc, path
+
+
+def simulate_phase(cpu: tuple) -> dict:
+    """The simulator path on the card: every case replayed from its step
+    graphs under the sync watch and held against the CPU's summaries; the
+    ``SIM_EAGER`` cases also stepped eagerly on the card and held bit for
+    bit (the timed one graphed and eager in turns); the timed case's
+    capture and replays timed at each of ``SIM_BLOCKS``."""
+    from repro_torch.core import channel as ch
+    from repro_torch.core import scheduler as sched
+    from repro_torch.device import sync_watch
+    cases = sim_cases()
+    got, syncs, bad = {}, Counter(), []
+    t0 = time.perf_counter()
+    results = {}
+    for key, case in cases.items():
+        with sync_watch() as s:
+            res = run_sim(case, "cuda")
+        syncs.update(s)
+        results[key] = res
+        got[key] = sched.summarize(res)
+    graphed_s = time.perf_counter() - t0
+    if syncs:
+        bad.append(f"the simulator synced with the host: {dict(syncs)}")
+    walls = {"graphs": [], "eager": []}
+    for key in SIM_EAGER:
+        modes = (("graphs", "eager", "eager", "graphs") if key == SIM_TIMED
+                 else ("eager",))
+        for mode in modes:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = run_sim(cases[key], "cuda", graphs=mode == "graphs")
+            torch.cuda.synchronize()
+            if key == SIM_TIMED:
+                walls[mode].append((time.perf_counter() - t1) * 1e3)
+            if not all(torch.equal(a, b)
+                       for a, b in zip(results[key], res)):
+                bad.append(f"simulator {key}: the {mode} run differs from "
+                           f"the first graphed one on the card")
+    proc, path = cpu
+    if proc.wait(timeout=600) != 0:
+        fail("the CPU simulations failed")
+    cpu_out = json.loads(path.read_text())
+    for key, (_, _, _, _, lockstep) in cases.items():
+        want, have = cpu_out["summaries"][key], got[key]
+        rtol = SIM_LOCKSTEP_RTOL if lockstep else SIM_SUMMARY_RTOL
+        off = {m: (have[m], want[m]) for m in want
+               if abs(have[m] - want[m]) > rtol * abs(want[m]) + 1e-9}
+        if off or have["switches"] != want["switches"]:
+            bad.append(f"simulator {key}: the card against the CPU "
+                       f"(rtol {rtol}): {off}")
+    imp = {"llm/prefill": sched.improvement(
+        {p: got[f"llm/prefill/{p}"] for p in ("cfs", "hinted")},
+        "hinted", "cfs"),
+           "llm/decode": sched.improvement(
+        {p: got[f"llm/decode/{p}"] for p in ("cfs", "hinted")},
+        "hinted", "cfs")}
+    for pattern in ("phased", "gaussian"):
+        for rf in SIM_RATIOS:
+            imp[f"micro/{pattern}/{rf}"] = sched.improvement(
+                {p: got[f"micro/{pattern}/{rf}/{p}"]
+                 for p in ("cfs", "timeseries")})
+
+    # the timed case's capture and replays alone at each graph block size
+    case = cases[SIM_TIMED]
+    steps = case[3]["steps"]
+    blocks = []
+    for g in SIM_BLOCKS:
+        scan = sched._Scan(ch.PRESETS[case[0]], case[1],
+                           sched.policies_lib.get_policy(case[2]),
+                           sched.PolicyParams(), sched.SimConfig(**case[3]),
+                           torch.device("cuda"))
+        graphs = sched.ScanGraphs(scan, g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        graphs.run()
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t1) * 1e3
+        if not torch.equal(scan.result().moved_read,
+                           results[SIM_TIMED].moved_read):
+            fail(f"simulator: graph block {g} moved other bytes")
+        blocks.append({"block": g, "capture_s": graphs.capture_s,
+                       "replay_ms": run_ms,
+                       "steps_per_s": steps / run_ms * 1e3})
+    out = {
+        "duplex_benefit": {name: ch.duplex_benefit(ch.PRESETS[name])
+                           for name in ("cxl-512gb", "ddr5-local")},
+        "improvement": imp,
+        "policies": {p: got[f"llm/decode/{p}"] for p in SIM_POLICIES},
+        "timed": SIM_TIMED, "steps": steps,
+        "graphed_ms": walls["graphs"], "eager_ms": walls["eager"],
+        "steps_per_s_graphed": steps / min(walls["graphs"]) * 1e3,
+        "steps_per_s_eager": steps / min(walls["eager"]) * 1e3,
+        "blocks": blocks, "block": sched.GRAPH_STEPS,
+        "cases": len(cases), "all_graphed_s": graphed_s,
+        "cpu_s": cpu_out["seconds"], "card": gpu_line()}
+    print(json.dumps({"simulator": out}), flush=True)
+    if bad:
+        fail("; ".join(bad))
+    return out
+
+
 def profile_serving(api, params, main: dict, walls: dict) -> None:
     """How busy the card is on the main path, with the eager megastep and
     with the step graphs: the profiler's device time over one more run
@@ -2046,10 +2348,22 @@ def ptxas_usage(log: str) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--cpu-sims"]:
+        return cpu_sims(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    cpu = start_cpu_sims()
+    try:
+        return card_main(cpu)
+    finally:
+        if cpu[0].poll() is None:
+            cpu[0].kill()
+        cpu[0].wait()
+
+
+def card_main(cpu: tuple) -> int:
 
     print(f"card: {gpu_line()}", flush=True)
     # wall seconds of each phase, printed before the kernels line
@@ -2116,6 +2430,10 @@ def main() -> int:
     check_kernels(sorted({tuple(s[:3]) for r in tier_runs.values()
                           for rows in r["shapes"].values() for s in rows}))
     mark("faults")
+    serve_traced(api, params)
+    mark("traced")
+    simulate_phase(cpu)
+    mark("simulator")
     forward = {}
     for arch, B, S in FORWARD_RUNS:
         forward[arch] = forward_phase(arch, B, S)

@@ -156,6 +156,10 @@ class FaultInjector:
         self._offline: set[int] = set()
         self._newly_offline: list[int] = []
         self._poison_armed: list[int] = []
+        # observability (serve.trace.Tracer): the engine attaches it so
+        # armed events land as instants on the trace's fault track;
+        # None = no tracing, zero extra work.
+        self.trace = None
 
     # -- clock --------------------------------------------------------------
     def tick(self) -> None:
@@ -168,6 +172,19 @@ class FaultInjector:
             self._cursor += 1
             until = (float("inf") if ev.duration <= 0
                      else self.step + ev.duration)
+            if self.trace is not None:
+                args = {"at_step": ev.at_step}
+                if ev.kind == "poison":
+                    args["block"] = ev.block
+                elif ev.kind != "crash":
+                    args["channel"] = ev.channel
+                if ev.kind == "degrade":
+                    args["factor"] = ev.factor
+                elif ev.kind == "transient":
+                    args["p"] = ev.p
+                if ev.duration > 0:
+                    args["duration"] = ev.duration
+                self.trace.instant("faults", ev.kind, args)
             if ev.kind == "crash":
                 # count the injection before dying (the reference's
                 # post-mortem of the shared stats dict reads it)

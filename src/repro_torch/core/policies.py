@@ -1,4 +1,4 @@
-"""Admission policies (CXLAimPod §4.4, Algorithm 1) on CPU tensors.
+"""Admission policies (CXLAimPod §4.4, Algorithm 1) on torch tensors.
 
 Port of ``repro/core/policies.py``: the ``init / schedule / update``
 policy protocol and all six policies of its registry — ``cfs`` (fair
@@ -10,13 +10,18 @@ plus ``migration_volume`` and the megastep feedback helpers
 (``seed_read_fraction``, ``stack_feedbacks``, ``fold_feedback``).
 
 A policy's state is a handful of small float32 vectors, one entry per
-waiting-room slot. It lives on the CPU: the reference reads the weights
-back to the host at every admission anyway, so keeping it off the card
-costs no transfer. The arithmetic follows the reference operation for
-operation in float32, with two PyTorch-specific cares: sorts are stable
-(``jnp.argsort`` is), and a Python scalar divided by a tensor is written
-as a tensor divide (``scalar / tensor`` in PyTorch multiplies by the
-reciprocal, which is not the IEEE divide the reference does).
+stream. ``init`` makes it on the device it is given, and ``schedule`` /
+``update`` make every tensor on their inputs' device and read nothing
+back to the host, so a policy runs inside the simulator's CUDA graph
+(``core.scheduler``) as well as on the CPU, where the serving queue
+keeps it (the reference reads the weights back at every admission, so
+keeping that state off the card costs no transfer). The arithmetic
+follows the reference operation for operation in float32, with two
+PyTorch-specific cares: sorts are stable (``jnp.argsort`` is; PyTorch's
+stable sort is stable on CUDA too), and a Python scalar divided by a
+tensor is written as a tensor divide (``scalar / tensor`` in PyTorch
+multiplies by the reciprocal, which is not the IEEE divide the reference
+does).
 """
 
 from __future__ import annotations
@@ -79,9 +84,10 @@ class PolicyParams:
 
 
 class Policy(NamedTuple):
-    """The paper's three-method policy interface, as pure functions."""
+    """The paper's three-method policy interface, as pure functions;
+    ``init(params, n_streams, device="cpu")``."""
     name: str
-    init: Callable[[PolicyParams, int], Any]
+    init: Callable[..., Any]
     schedule: Callable[[PolicyParams, Any, Obs], tuple[Any, torch.Tensor]]
     update: Callable[[PolicyParams, Any, Feedback], Any]
 
@@ -103,7 +109,7 @@ def _active(obs: Obs) -> torch.Tensor:
 # cfs — fair share, direction-oblivious (the paper's baseline).
 # ---------------------------------------------------------------------------
 
-def _cfs_init(params: PolicyParams, n_streams: int):
+def _cfs_init(params: PolicyParams, n_streams: int, device="cpu"):
     return ()
 
 
@@ -127,9 +133,9 @@ class _BatchState(NamedTuple):
     residual: torch.Tensor    # float32, batch budget remaining
 
 
-def _batch_init(params: PolicyParams, n_streams: int):
-    return _BatchState(torch.tensor(0, dtype=torch.int32),
-                       torch.tensor(0.0, dtype=F32))
+def _batch_init(params: PolicyParams, n_streams: int, device="cpu"):
+    return _BatchState(torch.zeros((), dtype=torch.int32, device=device),
+                       torch.zeros((), dtype=F32, device=device))
 
 
 def _batch_schedule(params: PolicyParams, state: _BatchState, obs: Obs):
@@ -138,8 +144,9 @@ def _batch_schedule(params: PolicyParams, state: _BatchState, obs: Obs):
     # switch direction only when the current one is (nearly) drained.
     cur_dir_bytes = torch.where(state.direction == 0, tot_r, tot_w)
     switch = cur_dir_bytes <= 0.0
-    reads, writes = (torch.tensor(d, dtype=torch.int32) for d in (0, 1))
-    direction = torch.where(switch, torch.where(tot_r >= tot_w, reads, writes),
+    reads = torch.zeros_like(state.direction)
+    direction = torch.where(switch, torch.where(tot_r >= tot_w, reads,
+                                                reads + 1),
                             state.direction)
     backlog = torch.where(direction == 0, obs.backlog_read,
                           obs.backlog_write)
@@ -163,15 +170,16 @@ DDR_BATCHING = Policy("ddr_batching", _batch_init, _batch_schedule,
 # int32 scalar (the rotation offset), not a tuple.
 # ---------------------------------------------------------------------------
 
-def _rr_init(params: PolicyParams, n_streams: int):
-    return torch.tensor(0, dtype=torch.int32)
+def _rr_init(params: PolicyParams, n_streams: int, device="cpu"):
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
 def _rr_schedule(params: PolicyParams, state, obs: Obs):
     n = obs.backlog_read.shape[0]
     k = max(1, int(params.n_slots))
     # ``%`` on a tensor floors like ``jnp``'s: a negative difference wraps
-    idx = (torch.arange(n, dtype=torch.int32) - state) % n
+    idx = (torch.arange(n, dtype=torch.int32, device=state.device)
+           - state) % n
     raw = (idx < k).to(F32) * _active(obs).to(F32)
     return (state + k) % n, _normalize_slots(raw, params.n_slots)
 
@@ -187,7 +195,7 @@ def _rank_desc(scores: torch.Tensor) -> torch.Tensor:
     """Rank of each element under a stable descending sort (0 = largest)."""
     order = torch.argsort(-scores, stable=True)
     rank = torch.empty_like(order)
-    rank[order] = torch.arange(scores.shape[0])
+    rank[order] = torch.arange(scores.shape[0], device=scores.device)
     return rank
 
 
@@ -250,16 +258,20 @@ class TimeSeriesState(NamedTuple):
     oversub: torch.Tensor      # bool
 
 
-def _ts_init(params: PolicyParams, n_streams: int) -> TimeSeriesState:
+def _ts_init(params: PolicyParams, n_streams: int,
+             device="cpu") -> TimeSeriesState:
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=F32, device=device)
+
     return TimeSeriesState(
-        window=torch.zeros((params.window, 4), dtype=F32),
-        cursor=torch.tensor(0, dtype=torch.int32),
-        ewma_rf=torch.full((n_streams,), 0.5, dtype=F32),
-        ewma_rate=torch.zeros((n_streams,), dtype=F32),
-        volatility=torch.zeros((n_streams,), dtype=F32),
-        vruntime=torch.zeros((n_streams,), dtype=F32),
-        prev_w=torch.zeros((n_streams,), dtype=F32),
-        oversub=torch.tensor(False),
+        window=zeros(params.window, 4),
+        cursor=torch.zeros((), dtype=torch.int32, device=device),
+        ewma_rf=torch.full((n_streams,), 0.5, dtype=F32, device=device),
+        ewma_rate=zeros(n_streams),
+        volatility=zeros(n_streams),
+        vruntime=zeros(n_streams),
+        prev_w=zeros(n_streams),
+        oversub=torch.zeros((), dtype=torch.bool, device=device),
     )
 
 
@@ -272,8 +284,9 @@ def _ts_phase1_update_window(params: PolicyParams, state: TimeSeriesState,
         torch.sum(obs.backlog_read + obs.backlog_write),
         obs.prev_util.to(F32),
     ])
-    window = state.window.clone()
-    window[int(state.cursor) % params.window] = sample
+    # the ring slot is indexed on the device: no read of the cursor back
+    row = (state.cursor % params.window).reshape(1).to(torch.int64)
+    window = state.window.index_copy(0, row, sample.reshape(1, 4))
     cursor = state.cursor + 1
 
     a = params.ewma_alpha
@@ -448,7 +461,7 @@ def reset_slots(policy: Policy, params: PolicyParams, capacity: int,
     unchanged."""
     if not isinstance(state, tuple) or not state:
         return state
-    fresh = policy.init(params, capacity)
+    fresh = policy.init(params, capacity, device=mask.device)
 
     def sel(cur, f):
         if cur.dim() >= 1 and cur.shape[0] == capacity:

@@ -10,7 +10,9 @@ planner attributes each paging transaction's bytes to its hint scope.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
+from typing import Iterator
 
 # Context types, mirroring the paper's CAX type enum.
 SYSTEM = "system"
@@ -107,15 +109,43 @@ class CaxRegistry:
             node = (self._by_id[node.parent_id]
                     if node.parent_id is not None else None)
 
-    def reset(self) -> None:
-        """Zero every context's accumulators in place. Scope identity
-        (paths, ids, hierarchy) survives — attached producers keep
-        their references — only the measurements restart."""
-        for c in self._by_path.values():
-            c.read_bytes = c.write_bytes = 0.0
-            c.flops = c.collective_bytes = 0.0
-            c.samples = 0
-            c.last_update = 0.0
+    # -- queries --------------------------------------------------------------
+    def get(self, path: str) -> CaxContext | None:
+        return self._by_path.get(path)
+
+    def children(self, path: str) -> Iterator[CaxContext]:
+        ctx = self._by_path.get(path)
+        if ctx is None:
+            return iter(())
+        return (c for c in self._by_path.values()
+                if c.parent_id == ctx.ctx_id)
+
+    def paths(self) -> list[str]:
+        return sorted(self._by_path)
+
+    # -- reporting -------------------------------------------------------------
+    def report(self, root: str = "/", min_bytes: float = 0.0) -> str:
+        """Render the hierarchy as an indented bandwidth-attribution table."""
+        lines = ["path  type  read_GB  write_GB  r_frac  flops_G  coll_GB"]
+        base = self._by_path.get(root)
+        if base is None:
+            return "\n".join(lines)
+        base_depth = 0 if root == "/" else root.count("/")
+
+        def emit(ctx: CaxContext) -> None:
+            if ctx.total_bytes >= min_bytes:
+                depth = 0 if ctx.path == "/" else ctx.path.count("/")
+                indent = "  " * max(depth - base_depth, 0)
+                lines.append(
+                    f"{indent}{ctx.path}  {ctx.ctx_type}  "
+                    f"{ctx.read_bytes / 1e9:.3f}  {ctx.write_bytes / 1e9:.3f}  "
+                    f"{ctx.read_fraction:.2f}  {ctx.flops / 1e9:.3f}  "
+                    f"{ctx.collective_bytes / 1e9:.3f}")
+            for child in sorted(self.children(ctx.path), key=lambda c: c.path):
+                emit(child)
+
+        emit(base)
+        return "\n".join(lines)
 
     def to_dict(self) -> dict:
         """The scope tree as one JSON-able dict keyed by path (the serve
@@ -132,3 +162,30 @@ class CaxRegistry:
             }
             for p, c in sorted(self._by_path.items())
         }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    def reset(self) -> None:
+        """Zero every context's accumulators in place. Scope identity
+        (paths, ids, hierarchy) survives — attached producers keep
+        their references — only the measurements restart."""
+        for c in self._by_path.values():
+            c.read_bytes = c.write_bytes = 0.0
+            c.flops = c.collective_bytes = 0.0
+            c.samples = 0
+            c.last_update = 0.0
+
+
+# A process-wide default registry, like the kernel's single BPF map.
+_GLOBAL = CaxRegistry()
+
+
+def global_registry() -> CaxRegistry:
+    return _GLOBAL
+
+
+def reset_global_registry() -> CaxRegistry:
+    global _GLOBAL
+    _GLOBAL = CaxRegistry()
+    return _GLOBAL

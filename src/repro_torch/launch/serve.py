@@ -1,6 +1,7 @@
 """Serving driver: multi-tenant continuous batching with duplex-paged KV
 (port of ``repro/launch/serve.py``; ``--tiers`` backs the pool's host
-side with DDR5/CXL channels, ``--faults`` injects a fault plan).
+side with DDR5/CXL channels, ``--faults`` injects a fault plan,
+``--trace OUT.JSON`` exports a Perfetto trace of the measured run).
 
 Requests arrive staggered into the ``ServeEngine`` megastep loop; the
 admission policy picks which waiting work joins the running set — LLM
@@ -140,6 +141,13 @@ def main() -> int:
     p.add_argument("--stall-boundaries", type=int, default=64,
                    help="consecutive zero-progress megastep boundaries "
                         "before run() raises EngineStallError")
+    p.add_argument("--trace", default=None, metavar="OUT.JSON",
+                   help="enable the serve.trace observability plane on "
+                        "the measured engine and export a Chrome/"
+                        "Perfetto trace (boundary spans on the host "
+                        "clock, per-channel duplex busy timelines on "
+                        "the modelled clock, fault instants) to this "
+                        "path; open at https://ui.perfetto.dev")
     p.add_argument("--telemetry", action="store_true",
                    help="include the CAX scope tree in the JSON report")
     p.add_argument("--no-paging", action="store_true",
@@ -177,14 +185,18 @@ def main() -> int:
     prompts = np.random.default_rng(1).integers(
         0, api.cfg.vocab, (args.requests, args.prompt_len)).astype(np.int32)
 
-    def build_and_submit():
+    def build_and_submit(trace=True):
         # a FaultInjector is stateful (clock + retry RNG): each engine
         # build gets a fresh one so warmup and the measured run replay
         # the identical fault schedule.
         run_cfg = cfg
+        if args.trace and trace:
+            # measured engine only: the warmup run's spans and channel
+            # intervals would pollute the exported timeline.
+            run_cfg = dataclasses.replace(run_cfg, trace=args.trace)
         if args.faults:
             run_cfg = dataclasses.replace(
-                cfg, faults=faults_lib.FaultInjector(
+                run_cfg, faults=faults_lib.FaultInjector(
                     faults_lib.parse_fault_plan(args.faults),
                     seed=args.fault_seed))
         engine = ServeEngine(api, params, run_cfg)
@@ -222,7 +234,7 @@ def main() -> int:
     if not args.no_warmup:
         # the same workload once first: builds the CUDA kernels and warms
         # the libraries, so the measured run is steady-state serving.
-        warm, _ = build_and_submit()
+        warm, _ = build_and_submit(trace=False)
         try:
             warm.run()
         except (RuntimeError, ValueError) as e:
@@ -267,6 +279,19 @@ def main() -> int:
         print(f"tiered host pool ({args.tiers}): "
               f"tier_speedup={ts['tier_speedup']:.2f}x vs all-DDR5 "
               f"serial, {ts['migrations']} boundary migrations")
+    trace_info = None
+    if args.trace:
+        trace_path = engine.export_trace()
+        summary = engine.tracer.summary()
+        trace_info = {"path": trace_path, **summary}
+        ph = summary["phase_us"]
+        print(f"trace -> {trace_path}: "
+              f"plan {ph.get('plan_us', 0.0):.0f}us / dispatch "
+              f"{ph.get('dispatch_us', 0.0):.0f}us / reconcile "
+              f"{ph.get('reconcile_us', 0.0):.0f}us host-clock, "
+              f"{summary['events']} events over "
+              f"{len(summary['duplex_util'])} channel tracks "
+              f"({summary['model_us']:.1f}us modelled)")
 
     def _round(v):
         if isinstance(v, float):
@@ -301,7 +326,7 @@ def main() -> int:
         "snapshot": _round(est["snapshot"]),
         "restore": None,
         "paging": _round(engine.paging_stats()),
-        "trace": None,
+        "trace": _round(trace_info) if trace_info else None,
     }
     if args.telemetry:
         report["telemetry"] = _round(engine.telemetry.to_dict())

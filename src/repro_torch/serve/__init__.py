@@ -1,6 +1,6 @@
 """Multi-tenant continuous-batching serving over the duplex-paged KV pool
-(port of ``repro.serve``: the flat and tiered pools and the fault layer;
-no snapshots, tracing or sharding).
+(port of ``repro.serve``: the flat and tiered pools, the fault layer and
+the tracing plane; no snapshots or sharding).
 
   RequestQueue — admission via the ``core.policies`` Policy protocol; LLM
                  prefills and tenant requests (declared ``TrafficProfile``)
@@ -31,7 +31,11 @@ no snapshots, tracing or sharding).
                  pipelined boundaries;
   StepGraphs   — on a CUDA device, the engine steps as CUDA graphs over the
                  engine's static cache and slot state, one per count of
-                 active micro-steps, replayed once per inner step.
+                 active micro-steps, replayed once per inner step;
+  Tracer       — the observability plane (``EngineConfig.trace``):
+                 boundary spans on the host clock, per-channel duplex busy
+                 timelines on the modelled clock, fault instants, Perfetto
+                 export.
 """
 
 from repro_torch.core.faults import (FaultEvent, FaultInjector,
@@ -43,11 +47,12 @@ from repro_torch.serve.kv_pool import PagedKVPool
 from repro_torch.serve.queue import (FAILED, Request, RequestQueue,
                                      TrafficProfile)
 from repro_torch.serve.tiers import TieredHostPool
+from repro_torch.serve.trace import Tracer
 from repro_torch.serve.workloads import (KVStoreTenant, VectorSearchTenant,
                                          WorkloadAPI)
 
 __all__ = ["EngineConfig", "EngineStallError", "FAILED", "FaultEvent",
            "FaultInjector", "KVStoreTenant", "PagedKVPool", "Request",
            "RequestQueue", "ServeEngine", "StepGraphs", "TieredHostPool",
-           "TrafficProfile", "VectorSearchTenant", "WorkloadAPI",
+           "Tracer", "TrafficProfile", "VectorSearchTenant", "WorkloadAPI",
            "parse_fault_plan", "random_plan", "reference_decode"]

@@ -2,9 +2,12 @@
 
 Port of ``repro/serve/engine.py``, with tenants (``add_tenant``: the
 KV-store and vector-search ``WorkloadAPI``s of ``serve/workloads.py``),
-the tiered host pool (``EngineConfig.tiers``, boundary migrations) and
-the fault layer (``EngineConfig.faults``), without snapshots or tracing.
-The structure is the reference's:
+the tiered host pool (``EngineConfig.tiers``, boundary migrations), the
+fault layer (``EngineConfig.faults``) and the tracing plane
+(``EngineConfig.trace``: ``plan`` / ``dispatch`` / ``reconcile`` spans on
+the host clock, the pool's channel timelines on the modelled clock, fault
+instants; ``metrics()``), without snapshots. The structure is the
+reference's:
 
   1. **admission** at megastep boundaries — free batch slots, and each
      tenant's free slots, are offered to the ``RequestQueue``, whose
@@ -75,6 +78,7 @@ import torch
 from repro_torch.core import policies as policies_lib
 from repro_torch.core.faults import fresh_fault_stats
 from repro_torch.core.hints import HintTree, default_serving_hints
+from repro_torch.core.metrics import MetricsRegistry
 from repro_torch.core.telemetry import CaxRegistry
 from repro_torch.device import resolve_device, to_device
 from repro_torch.models.registry import ModelAPI
@@ -83,6 +87,7 @@ from repro_torch.serve.kv_pool import PagedKVPool
 from repro_torch.serve.queue import (DECODE, DONE, FAILED, PREFILL,
                                      STATE_OF_CODE, Request, RequestQueue,
                                      S_DECODE, S_DONE, S_EMPTY, S_PREFILL)
+from repro_torch.serve.trace import Tracer
 
 
 def fresh_snapshot_stats() -> dict:
@@ -181,6 +186,11 @@ class EngineConfig:
                                 # the pool's transactions; needs paging
     stall_boundaries: int = 64  # run(): consecutive zero-progress
                                 # boundaries before EngineStallError
+    trace: object = None        # observability plane (serve.trace): a
+                                # Tracer, True (in-memory), or a path str
+                                # for Perfetto export. None = disabled,
+                                # zero hooks anywhere on the hot path and
+                                # bit-exact with an untraced engine.
     device: str = "cuda"        # where the cache, slot state and pool live
 
     def resolved_pool_blocks(self) -> int:
@@ -450,8 +460,23 @@ class ServeEngine:
         # CAX scope attribution, always wired (host-side dict arithmetic
         # off the billing the pool already does).
         self.telemetry = CaxRegistry()
+        # the tracer is None when disabled, like the fault injector: every
+        # hook below sits behind one ``is not None`` and reads no device
+        # tensor, so the replayed graphs are the same either way.
+        if cfg.trace is None:
+            self._tracer = None
+        elif isinstance(cfg.trace, Tracer):
+            self._tracer = cfg.trace
+        elif cfg.trace is True:
+            self._tracer = Tracer()
+        else:
+            self._tracer = Tracer(path=str(cfg.trace))
         if self.paged:
             self.pool.attach_telemetry(self.telemetry)
+            if self._tracer is not None:
+                self.pool.attach_trace(self._tracer)
+        if self._fx is not None:
+            self._fx.trace = self._tracer
         # non-LLM tenants (WorkloadAPI) sharing the pool, the paging
         # transaction and the admission queue
         self.tenants: dict[str, object] = {}
@@ -562,11 +587,15 @@ class ServeEngine:
         """Boundary planning: admission plus every live row's K-step
         trajectory, from the planning view of the request mirrors. No
         device sync."""
+        t0 = self._tracer.now_us() if self._tracer is not None else 0.0
         k = int(n_steps) if n_steps else max(1, self.cfg.megastep)
         now = self.step_count
         admitted = self._admit(now)
         live = self.active()
         traj = {r.rid: self._simulate_row(r, k) for r in live}
+        if self._tracer is not None:
+            self._tracer.span("plan", t0, step=now, k=k,
+                              admitted=admitted, live=len(live))
         return _InFlight(now=now, k=k, admitted=admitted, live=live,
                          traj=traj, micro=self._active_micro(live, traj, k))
 
@@ -600,7 +629,10 @@ class ServeEngine:
         the K-step program, the per-inner-step paging transactions against
         its staged slabs, mid-megastep block frees and the policy fold.
         Host state advances along the deterministic trajectory and every
-        pool alloc/free is journaled on ``rec``."""
+        pool alloc/free is journaled on ``rec``. On a CUDA device the
+        ``dispatch`` span covers the enqueue of the step graphs' replays,
+        not their run on the card."""
+        t0 = self._tracer.now_us() if self._tracer is not None else 0.0
         now, k, live, traj = rec.now, rec.k, rec.live, rec.traj
         staged = None
         if live:
@@ -689,6 +721,13 @@ class ServeEngine:
         self.step_count += k
         self.megasteps += 1
         self._inflight.append(rec)
+        if self._tracer is not None:
+            self._tracer.span(
+                "dispatch", t0, step=now, k=k, live=len(live),
+                in_flight=len(self._inflight),
+                page_ins=report["page_ins"], page_outs=report["page_outs"],
+                migrations=report["migrations"])
+            self._tracer.counter("in_flight", len(self._inflight))
         return rec
 
     def _retire_planned(self, rec: _InFlight) -> int:
@@ -720,8 +759,10 @@ class ServeEngine:
         device's final counters against the dispatched trajectory. A
         readback that contradicts its trajectory rolls back every
         speculative pool mutation before raising."""
+        t0 = self._tracer.now_us() if self._tracer is not None else 0.0
         self._inflight.remove(rec)
-        if rec.live and not self._inflight:
+        bubble = bool(rec.live and not self._inflight)
+        if bubble:
             # the host blocks on this readback with nothing dispatched
             # ahead of it — a pipeline bubble.
             self.host_blocked += 1
@@ -769,8 +810,15 @@ class ServeEngine:
                     advanced += ((last.consumed + last.n_gen) - (c0 + g0)
                                  - sum(st.transition for st in steps_r))
             except RuntimeError:
+                if self._tracer is not None:
+                    self._tracer.instant(
+                        "engine", "divergence_rollback",
+                        {"step": rec.now, "k": rec.k}, clock="host")
                 self._rollback_speculation(rec)
                 raise
+        if self._tracer is not None:
+            self._tracer.span("reconcile", t0, step=rec.now, k=rec.k,
+                              host_blocked=bubble, advanced=advanced)
         return {"step": rec.now, "steps": rec.k,
                 "admitted": rec.admitted, "advanced": advanced,
                 **rec.report}
@@ -832,6 +880,10 @@ class ServeEngine:
         self.failed[r.rid] = r
         if self._fx is not None:
             self._fx.stats["failed"] += 1
+        if self._tracer is not None:
+            self._tracer.instant(
+                "faults", "request_failed",
+                {"rid": r.rid, "kind": error.get("kind")})
 
     def _service_fault_report(self, rep: dict, step_now: int,
                               rec: _InFlight) -> None:
@@ -1272,6 +1324,33 @@ class ServeEngine:
             stats["tenants"] = {t.name: t.stats()
                                 for t in self.tenants.values()}
         return stats
+
+    @property
+    def tracer(self):
+        """The engine's ``serve.trace.Tracer`` (None when disabled)."""
+        return self._tracer
+
+    def export_trace(self, path: str | None = None) -> str:
+        """Write the Perfetto trace; needs ``cfg.trace`` enabled."""
+        if self._tracer is None:
+            raise ValueError("tracing is disabled; build the engine "
+                             "with EngineConfig(trace=...)")
+        return self._tracer.export(path)
+
+    def metrics(self):
+        """One typed ``core.metrics.MetricsRegistry`` snapshot of the
+        whole engine: stats()/paging_stats() flattened into counters
+        and gauges, the tracer's span histograms (when tracing), and
+        the CAX scope tree under ``"cax"``."""
+        reg = MetricsRegistry()
+        reg.ingest("engine", self.paging_stats())
+        snap = reg.snapshot()
+        if self._tracer is not None:
+            snap["trace"] = self._tracer.summary()
+            snap["histograms"].update(
+                self._tracer.metrics.snapshot()["histograms"])
+        snap["cax"] = self.telemetry.to_dict()
+        return snap
 
 
 def reference_decode(api: ModelAPI, params, prompts, num_tokens: int,

@@ -28,8 +28,11 @@ rebinds them, the port updates them in place (``index_copy_``), so the
 tensors stay the same objects a captured CUDA graph may read. The
 reference's ``mode="drop"`` scatters silently drop out-of-range sentinel
 rows; the port drops them explicitly on the host before indexing.
-``flush_dirty`` and ``snapshot_state`` / ``load_state`` (the snapshot
-layer) and the trace hooks are not ported yet.
+``attach_trace`` lays each billed transaction's per-channel busy
+intervals on a ``serve.trace.Tracer``'s modelled clock (host arithmetic
+only). ``flush_dirty`` — with its ``"flush"`` trace site — and
+``snapshot_state`` / ``load_state`` belong to the snapshot layer, which is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ import torch
 
 from repro_torch.core import channel as channel_lib
 from repro_torch.core.hints import HintTree, default_serving_hints
-from repro_torch.core.offload import DuplexOffloadEngine, plan_serial
+from repro_torch.core.offload import (DuplexOffloadEngine, plan_serial,
+                                      phase_separated_time_us)
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.serve.tiers import TieredHostPool
@@ -141,6 +145,8 @@ class PagedKVPool:
         # attached none of the fault machinery exists: no checksum
         # arrays, no per-transaction tick, no branch past one ``is None``.
         self._fx = faults
+        self._trace = None            # serve.trace.Tracer, when attached
+        self._trace_prefix = ""
         self._csum_data = self._csum_stamp = None
         self._stamp = 0
         if faults is not None:
@@ -154,6 +160,15 @@ class PagedKVPool:
     def _idx(self, ids) -> torch.Tensor:
         """Host index array -> int64 index tensor on the pool's device."""
         return to_device(np.asarray(ids, np.int64).reshape(-1), self.device)
+
+    def attach_trace(self, tracer, prefix: str = "") -> None:
+        """Attach a ``serve.trace.Tracer``: every billed transaction
+        (paging, migrations, evacuations) additionally lays per-channel
+        per-direction busy intervals on its modelled clock. ``prefix``
+        namespaces the channel tracks."""
+        self._trace = tracer
+        self._trace_prefix = prefix
+        self.host.attach_trace(tracer, prefix)
 
     def attach_telemetry(self, registry) -> None:
         """Route CAX scope attribution into ``registry``: the flat planner
@@ -172,6 +187,26 @@ class PagedKVPool:
         t["read_bytes"] += read_blocks * bb
         t["write_bytes"] += write_blocks * bb
         t["busy_us"] += busy_us
+
+    def _flat_trace_txn(self, read_blocks: int, write_blocks: int,
+                        duplex_us: float, co_issued: bool,
+                        name: str) -> None:
+        """Flat-pool twin of the tiered billing's timeline hook: one
+        channel, per-direction pure times under the (possibly degraded)
+        link model, the transaction's billed time as the advance."""
+        link = self.engine.link
+        if self._fx is not None:
+            factor = self._fx.bandwidth_factor(0)
+            if factor < 1.0:
+                link = link.degraded(factor)
+        bb = self.host.block_bytes
+        rd_b, wr_b = read_blocks * bb, write_blocks * bb
+        self._trace.channel_transaction(
+            [(f"{self._trace_prefix}{self.host.kinds[0]}:0", rd_b, wr_b,
+              phase_separated_time_us(link, rd_b, 0.0),
+              phase_separated_time_us(link, 0.0, wr_b),
+              duplex_us, co_issued)],
+            duplex_us, name=name)
 
     # -- allocation (request lifecycle) ------------------------------------
     def alloc(self, k: int = 1) -> list[int]:
@@ -494,6 +529,9 @@ class PagedKVPool:
                     serial_us += extra
                 self._flat_bill_totals(int(stale.size), int(outs.size),
                                        duplex_us)
+                if self._trace is not None:
+                    self._flat_trace_txn(int(stale.size), int(outs.size),
+                                         duplex_us, duplex_ok, "paging")
             bp = self.stats["by_path"].setdefault(hint_path,
                                                   _fresh_path_stats())
             for st, key, val in (

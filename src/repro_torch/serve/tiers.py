@@ -42,9 +42,10 @@ stays in the pool's ``host_q``/``host_scale`` arrays, indexed by the
 global host-slot namespace this class owns (channel c's slots occupy
 ``[base[c], base[c] + cap[c])``).
 
-Port of ``repro/serve/tiers.py``. The reference's trace hooks
-(``attach_trace``) and snapshot/restore (``snapshot_state`` /
-``load_state``) wait for the port's trace and snapshot layers.
+Port of ``repro/serve/tiers.py``, with its trace hooks (``attach_trace``:
+per-channel busy intervals of billing, migrations and evacuations on a
+``serve.trace.Tracer``'s modelled clock). Snapshot/restore
+(``snapshot_state`` / ``load_state``) waits for the port's snapshot layer.
 """
 
 from __future__ import annotations
@@ -139,6 +140,8 @@ class TieredHostPool:
         # of circulation (occupancy invariant: used + free + quarantined
         # + lost == cap per channel).
         self._fx = None
+        self._trace = None            # serve.trace.Tracer, when attached
+        self._trace_prefix = ""
         self.offline = np.zeros((C,), bool)
         self._quarantined = np.zeros((C,), np.int64)
         self._lost = np.zeros((C,), np.int64)
@@ -313,6 +316,7 @@ class TieredHostPool:
         self._win[:, 1] += wr
         duplex = serial = 0.0
         fx = self._fx
+        entries = None if self._trace is None else []
         for c in range(C):
             ch = self.channels[c]
             if fx is not None:
@@ -339,6 +343,15 @@ class TieredHostPool:
             t["read_bytes"] += rd[c]
             t["write_bytes"] += wr[c]
             t["busy_us"] += billed_us
+            if entries is not None and (rd[c] > 0.0 or wr[c] > 0.0):
+                entries.append((
+                    self._trace_track(c), rd[c], wr[c],
+                    offload_lib.phase_separated_time_us(ch, rd[c], 0.0),
+                    offload_lib.phase_separated_time_us(ch, 0.0, wr[c]),
+                    billed_us, co_issued))
+        if entries:
+            self._trace.channel_transaction(entries, duplex,
+                                            name="paging")
         return rd, wr, duplex, serial
 
     def ddr5_baseline_us(self, rd: np.ndarray, wr: np.ndarray) -> float:
@@ -481,9 +494,26 @@ class TieredHostPool:
                 blocks.tolist(), srcs.tolist(), dsts.tolist(), bb)),
             migrate_us)
 
+    def attach_trace(self, tracer, prefix: str = "") -> None:
+        """Attach a ``serve.trace.Tracer``; billing appends per-channel
+        per-direction busy intervals on its modelled clock. ``prefix``
+        namespaces the track names. Every channel's rd/wr tracks are
+        registered up front so idle channels still show an (empty)
+        utilization timeline."""
+        self._trace = tracer
+        self._trace_prefix = prefix
+        for c in range(len(self.channels)):
+            for d in (".rd", ".wr"):
+                tracer.timelines.setdefault(self._trace_track(c) + d, [])
+
+    def _trace_track(self, c: int) -> str:
+        return f"{self._trace_prefix}{self.kinds[c]}:{c}"
+
     def apply(self, plan: MigrationPlan) -> None:
         """Commit a plan's placement-map updates (the pool has already
         executed the device row copies) and reset the traffic window."""
+        if self._trace is not None and len(plan):
+            self._trace_migration(plan)
         for b, src, dst in zip(plan.blocks.tolist(),
                                plan.src_slots.tolist(),
                                plan.dst_slots.tolist()):
@@ -498,6 +528,35 @@ class TieredHostPool:
         self.migrations += len(plan)
         self.migrate_us += plan.migrate_us
         self._win[:] = 0.0
+
+    def _trace_migration(self, plan: MigrationPlan) -> None:
+        """Lay one boundary migration's legs on the channel timelines:
+        reads on the source channels, writes on the destinations, at
+        each channel's pure direction rate. Only the half-duplex legs'
+        billed time (``plan.migrate_us``) advances the modelled clock —
+        duplex legs ride the idle minor direction, visible as occupancy
+        that adds no horizon."""
+        C = len(self.channels)
+        rd = np.bincount(self.channel_of_slot[plan.src_slots],
+                         minlength=C).astype(np.float64) * self.block_bytes
+        wr = np.bincount(self.channel_of_slot[plan.dst_slots],
+                         minlength=C).astype(np.float64) * self.block_bytes
+        entries = []
+        for c in range(C):
+            if rd[c] == 0.0 and wr[c] == 0.0:
+                continue
+            rd_us = offload_lib.phase_separated_time_us(
+                self.channels[c], rd[c], 0.0)
+            wr_us = offload_lib.phase_separated_time_us(
+                self.channels[c], 0.0, wr[c])
+            entries.append((self._trace_track(c), rd[c], wr[c],
+                            rd_us, wr_us, rd_us + wr_us, True))
+        if entries:
+            self._trace.channel_transaction(entries, plan.migrate_us,
+                                            name="migrate")
+        self._trace.instant("migrations", "tier_migrate",
+                            {"moves": len(plan),
+                             "migrate_us": round(plan.migrate_us, 3)})
 
     def abandon(self, plan: MigrationPlan) -> None:
         """Return a plan's reserved destination slots (error paths)."""
@@ -609,12 +668,32 @@ class TieredHostPool:
             wr = np.bincount(
                 self.channel_of_slot[np.asarray(moved_dst, np.int64)],
                 minlength=len(self.channels)).astype(np.float64) * bb
+            wr_entries = []
             for dc in np.flatnonzero(wr > 0).tolist():
                 wr_us = offload_lib.phase_separated_time_us(
                     self.channels[dc], 0.0, wr[dc])
                 self.totals[dc]["write_bytes"] += wr[dc]
                 self.totals[dc]["busy_us"] += wr_us
                 self.migrate_us += wr_us
+                if self._trace is not None:
+                    wr_entries.append((self._trace_track(dc), 0.0,
+                                       wr[dc], 0.0, wr_us, wr_us, False))
+            if self._trace is not None:
+                # the dying channel's read leg precedes the surviving
+                # channels' write legs — two modelled-clock steps.
+                rd_b = len(transfers) * bb
+                self._trace.channel_transaction(
+                    [(self._trace_track(c), rd_b, 0.0, rd_us, 0.0,
+                      rd_us, False)], rd_us, name="evacuate")
+                if wr_entries:
+                    self._trace.channel_transaction(
+                        wr_entries, max(e[4] for e in wr_entries),
+                        name="evacuate")
+                self._trace.instant(
+                    "faults", "evacuation",
+                    {"channel": self._trace_track(c),
+                     "moved": len(moved_b),
+                     "casualties": len(casualties)})
         return (np.asarray(moved_b, np.int32),
                 np.asarray(moved_src, np.int32),
                 np.asarray(moved_dst, np.int32), casualties)

@@ -3,7 +3,9 @@ admission policies, and under the tiered host pool and fault plans
 (``--tiers``, ``--no-tier-migrate``, ``--faults``, with tenants too),
 both ``main()``s run in-process on the SMOKE config (``--device cpu``
 for the port) and print the same JSON report, field for field; the
-parse-time errors of ``--tiers`` and ``--faults`` read the same. Left
+parse-time errors of ``--tiers`` and ``--faults`` read the same; under
+``--trace`` both report the same trace summary (bar the path and the
+host-clock span times) and export a Perfetto file. Left
 out of the comparison: the wall clock (``wall_s``, ``tok_s``) and the
 port's ``device`` field, which the reference's report
 does not have. The tokens themselves are not in the report (each CLI
@@ -107,3 +109,31 @@ def test_cli_tier_and_fault_errors_equal_reference(argv, needle,
         errs.append(capsys.readouterr().err.strip().splitlines()[-1])
     assert errs[1] == errs[0]
     assert needle in errs[1]
+
+
+@pytest.mark.parametrize("flags", ["plain", "tenants-tiers", "faults-offline"])
+def test_cli_trace_equals_reference(flags, monkeypatch, tmp_path):
+    """``--trace OUT.JSON``: the report's ``trace`` field equals the
+    reference CLI's apart from its ``path`` and the host-clock span
+    times (``phase_us``' ``*_us``; their counts are compared)."""
+    extra = [] if flags == "plain" else TIER_FAULT_FLAGS[flags]
+    argv = ["serve", "--gen", "12", "--no-warmup", *extra]
+    reports = []
+    for main, side in ((jserve.main, []), (tserve.main, ["--device", "cpu"])):
+        path = str(tmp_path / f"{len(reports)}.json")
+        reports.append(_report(main, argv + side + ["--trace", path],
+                               monkeypatch))
+        doc = json.load(open(path))
+        assert doc["otherData"]["modelled_horizon_us"] == \
+            reports[-1]["trace"]["model_us"]
+    want, got = reports
+    assert got["trace"]["path"].endswith("1.json")
+    for rep in reports:
+        rep["trace"].pop("path")
+        phases = rep["trace"]["phase_us"]
+        assert {"plan_us", "dispatch_us", "reconcile_us"} <= set(phases)
+        for key in [k for k in phases if k.endswith("_us")]:
+            phases[key] = None
+    for key in set(want) - UNCOMPARED - {"failed_requests"}:
+        assert got[key] == want[key], key
+    assert got["trace"]["duplex_util"] and got["trace"]["events"] > 0

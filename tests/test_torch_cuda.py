@@ -2,8 +2,10 @@
 their plain versions, the serving engine token-exact on the GPU, with
 and without tenants, its CUDA graphs of the engine steps against the
 eager megastep (smollm-135m paged, the tenant mix, rwkv6-7b), the
-forward through the flash-attention kernel, and the RWKV6 forward
-through the wkv6 kernel.
+forward through the flash-attention kernel, the RWKV6 forward
+through the wkv6 kernel, a traced engine against an untraced one, and
+the stream simulator on the card against the CPU and its step graphs
+against its eager steps.
 They skip where there is no CUDA device; on a machine with one, run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -495,7 +497,7 @@ else:
 # the tiered host pool and the fault layer on the card
 # ---------------------------------------------------------------------------
 
-def _tier_fault_run(api, params, prompts, graphs, plan):
+def _tier_fault_run(api, params, prompts, graphs, plan, trace=None):
     """One SMOKE run on a ``ddr5:1,cxl:2`` host tier beside a KV-store
     tenant (its scopes prefer DDR5 and CXL, so blocks migrate), with a
     fault plan or without, under the sync watch. Returns the readings the
@@ -508,8 +510,8 @@ def _tier_fault_run(api, params, prompts, graphs, plan):
     eng = ServeEngine(api, params, EngineConfig(
         max_batch=3, cache_len=64, block_tokens=4, hbm_blocks=10,
         pool_blocks=64, prefill_chunk=3, max_queue=16, megastep=4,
-        pipeline_depth=2, tiers="ddr5:1,cxl:2", faults=fx, device="cuda"),
-        _graphs=None if graphs else False)
+        pipeline_depth=2, tiers="ddr5:1,cxl:2", faults=fx, trace=trace,
+        device="cuda"), _graphs=None if graphs else False)
     kv = eng.add_tenant(KVStoreTenant(n_slots=2, ops_per_step=2,
                                       store_blocks=12))
     kv.preload(12)
@@ -570,3 +572,75 @@ def test_tiered_and_faulted_engines_graphed_equal_eager(cuda, plan):
         assert faults["injected"] == 4 and faults["retried"] > 0
         assert faults["evacuated"] > 0
     eng.pool.check_invariants()
+
+
+@pytest.mark.parametrize("plan", [
+    None, "degrade:2@4+20=0.5,transient:1@6+40=0.4,poison:0@9,offline:2@14"])
+def test_traced_graphed_engine_equals_untraced(cuda, plan):
+    """The tracing plane on the graphed engine: the same readings (tokens,
+    stats, paging, tier and fault stats, kernel launches) as untraced, no
+    device-to-host sync, and channel tracks monotonic and disjoint."""
+    from repro_torch.models import registry
+    api = registry.build("smollm-135m", smoke=True, device="cuda")
+    params = api.init(torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(1).integers(
+        0, api.cfg.vocab, (6, 7)).astype(np.int32)
+    plain, _, _, _ = _tier_fault_run(api, params, prompts, True, plan)
+    traced, eng, _, syncs = _tier_fault_run(api, params, prompts, True,
+                                            plan, trace=True)
+    assert traced == plain
+    assert syncs == {}
+    tr = eng.tracer
+    assert {"plan", "dispatch", "reconcile"} <= {s[0] for s in tr.spans}
+    for track, ivals in tr.timelines.items():
+        end = -1.0
+        for t0, dur, _, _ in ivals:
+            assert t0 >= end - 1e-6, track
+            end = t0 + dur
+    if plan is not None:
+        assert {"offline", "poison", "evacuation"} <= {
+            i[2] for i in tr.instants if i[1] == "faults"}
+
+
+# the CPU tests' tolerances (tests/test_torch_scheduler.py, which says why)
+SIM_SUMMARY_RTOL, SIM_LOCKSTEP_RTOL = 1e-5, 5e-4
+
+
+@pytest.mark.parametrize("case,policy", [
+    ("decode", "hinted"), ("phased", "timeseries"), ("ddr5", "cfs"),
+    ("open-loop", "threshold")])
+def test_simulator_on_the_card(cuda, case, policy):
+    """The simulator on the card: its step graphs equal its eager steps
+    bit for bit, raise no device-to-host sync, and agree with the CPU."""
+    from repro_torch.core import channel as ch
+    from repro_torch.core import scheduler as sched
+    from repro_torch.core.requests import StreamSpec
+    from repro_torch.device import sync_watch
+    sim = sched.SimConfig(steps=256, sequential=case == "phased",
+                          closed_loop=case != "open-loop")
+    if case == "phased":
+        specs = [StreamSpec(name=f"p{i}", pattern="phased",
+                            offered_gbps=8.0, read_fraction=0.5,
+                            phase_steps=64, sequential=True)
+                 for i in range(8)]
+    else:
+        specs = [StreamSpec(name=f"l{i}", pattern="llm_decode",
+                            offered_gbps=15.0, phase_steps=32)
+                 for i in range(8)]
+    channel = ch.DDR5_LOCAL if case == "ddr5" else ch.CXL_512
+    with sync_watch() as syncs:
+        graphed = sched.simulate(channel, specs, policy, sim=sim)
+    assert syncs == {}
+    assert graphed.moved_read.device.type == "cuda"
+    eager = sched.simulate(channel, specs, policy, sim=sim, _graphs=False)
+    for a, b in zip(graphed, eager):
+        assert torch.equal(a, b)
+    cpu = sched.simulate(channel, specs, policy, sim=sim, device="cpu")
+    got, want = sched.summarize(graphed), sched.summarize(cpu)
+    lockstep = case == "phased"
+    rtol = SIM_LOCKSTEP_RTOL if lockstep else SIM_SUMMARY_RTOL
+    assert got["switches"] == want["switches"]
+    for key in want:
+        assert got[key] == pytest.approx(want[key], rel=rtol, abs=1e-9), key
+    if not lockstep:
+        assert torch.equal(graphed.weights.cpu(), cpu.weights)

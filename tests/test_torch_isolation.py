@@ -41,9 +41,11 @@ def test_importing_the_port_pulls_in_no_jax():
     mods, bad = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(mods) >= 15
     assert bad == []
-    # the tiered host pool and the fault layer are among the scanned
+    # the tiered host pool, the fault layer, the simulator and the tracing
+    # plane are among the scanned
     for m in ("repro_torch.core.prng", "repro_torch.core.faults",
-              "repro_torch.serve.tiers"):
+              "repro_torch.serve.tiers", "repro_torch.core.scheduler",
+              "repro_torch.core.metrics", "repro_torch.serve.trace"):
         assert m in mods
 
 
