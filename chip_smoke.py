@@ -7,12 +7,12 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each kernel against its
 plain PyTorch version on the card (``flash_attention`` also at head dims
-80 and 112, which no model of the port runs yet, timed at a stablelm-3b
-and a kimi-k2 prefill shape), records beside the short kernels the
+80, 112 and 128, timed at a stablelm-3b, a kimi-k2 and a llama3.2-3b
+prefill shape), records beside the short kernels the
 device time of an empty kernel launched at the same geometry (the launch
 floor), and drives two serving paths at full
 width (smollm-135m: 30 layers, d_model 576, vocab 49152; random seeded
-weights), the full-sequence forward of three models and the serving of
+weights), the full-sequence forward of six models and the serving of
 rwkv6-7b, each with the launch counters set to 0 just before it and
 read just after:
 
@@ -76,7 +76,22 @@ read just after:
   * the RWKV serving path: rwkv6-7b FULL through ``ServeEngine`` with
     paging gated off by its recurrent cache, on the step graphs, every
     request token for token against ``reference_decode``, then with the
-    eager megastep, which must serve the same.
+    eager megastep, which must serve the same;
+  * the snapshot path: the main path's run with a crash-consistent cut
+    every ``SNAP_EVERY`` megasteps (its flushes through ``quant_stream``),
+    then the same run killed by ``crash:@S`` halfway through and restored
+    into a fresh graphed engine (and, flat, into an eager one): the
+    restored run's signature (tokens, admission and done steps, billing
+    per path and per channel, fault stats, ``tier_speedup``), cut count
+    and final pool bytes equal the uncrashed run's, the restore writes
+    the static tensors in place, and the host syncs only at the snapshot
+    and checkpoint sites; flat, then on ``TIER_SPEC``; every stream shape
+    the runs hand a kernel is held against the plain version;
+  * the dense-width path: one full-width forward each of llama3.2-3b,
+    qwen2.5-14b and stablelm-3b (weights drawn on the card), which must
+    launch ``flash_attention`` once per layer (head dims 128, 128, 80)
+    with logits within ``LOGITS_ATOL`` of the plain forward's and a
+    control beyond it.
 
 Each serving path prints its engine's graph count (``graphs <path>:``)
 and capture seconds (``graph_capture_s <path>:``) on lines of their own.
@@ -179,6 +194,19 @@ TRACE_EXPECT = {
     }},
 }
 
+# the snapshot path: the main path's run with a crash-consistent cut every
+# SNAP_EVERY megasteps, written under build/, then the same run killed by
+# crash:@S at the pool transaction halfway through it (S from the
+# uncrashed run's transaction clock) and restored into a fresh engine;
+# flat, then on TIER_SPEC without a tenant. The six cuts of the
+# uncrashed run flush 0, 12, 20, 7, 28 and 6 dirty blocks (the CPU
+# rehearsal at full-width byte counts); FLUSH_SHAPE is the largest flush,
+# at which quant_stream's flush row is timed (main() fails if the card's
+# largest is another).
+SNAP_EVERY = 8
+SNAP_DIR = ROOT / "build" / "snapshots"
+FLUSH_SHAPE = (28, 16, 11520)
+
 # the simulator path: the JAX package's simulator benchmarks rebuilt here
 # (benchmarks/llm_inference.py, microbench.py, characterization.py) at
 # their full sizes
@@ -255,6 +283,10 @@ FLASH_CHECKS = [
     (1, 256, 2, 1, 80, torch.float32, {"prefix_len": 96}),
     (1, 256, 2, 1, 112, torch.bfloat16, {"prefix_len": 96}),
     (1, 256, 2, 1, 112, torch.float32, {"prefix_len": 96}),
+    # head dim 128 at the llama3.2-3b (24 heads on 8) and qwen2.5-14b (40
+    # on 8) prefill shapes, which the dense-width path runs
+    (1, 2048, 24, 8, 128, torch.bfloat16, {}),
+    (1, 2048, 40, 8, 128, torch.bfloat16, {}),
 ]
 
 # the tensor-core body at the path shapes, held tighter than 3e-2, which
@@ -266,18 +298,25 @@ FLASH_CHECKS = [
 # |o|. A control, ref.attention with the last 64 queries losing their
 # first 64 keys (a window of S - 64: one kv tile), must break it.
 FLASH_PATH = {(4, 2048, 9, 3, 64), (2, 512, 8, 1, 256), (1, 2048, 32, 32, 80),
-              (1, 2048, 64, 8, 112)}
-# the head dims no model of the port runs, timed at a path shape of a
-# config of the repo that has them (causal prefill, S = 2048):
-# stablelm-3b (d_model 2560, 32 heads of 80) and kimi-k2 (64 heads of 112
-# on 8 kv heads)
+              (1, 2048, 64, 8, 112), (1, 2048, 24, 8, 128),
+              (1, 2048, 40, 8, 128)}
+# the head dims beyond the serving and forward paths' 64 and 256, timed at
+# a prefill shape of a config of the repo that has them (causal, S =
+# 2048): stablelm-3b (d_model 2560, 32 heads of 80), kimi-k2 (64 heads of
+# 112 on 8 kv heads) and llama3.2-3b (24 heads of 128 on 8)
 FLASH_WIDTHS = [("stablelm-3b", (1, 2048, 32, 32, 80)),
-                ("kimi-k2-1t", (1, 2048, 64, 8, 112))]
+                ("kimi-k2-1t", (1, 2048, 64, 8, 112)),
+                ("llama3.2-3b", (1, 2048, 24, 8, 128))]
 FLASH_TC_ULPS = 1
 
 # the forward path: (arch, batch, sequence); paligemma's first 256
 # positions are the stub patch embeddings, then 256 text tokens
 FORWARD_RUNS = [("smollm-135m", 4, 2048), ("paligemma-3b", 2, 512)]
+# the dense-width path: one full-width forward each of the other dense
+# configs, with the kernel and without (arch, batch, sequence); their head
+# dims are 128, 128 and 80, weights drawn on the card
+DENSE_RUNS = [("llama3.2-3b", 1, 2048), ("qwen2.5-14b", 1, 2048),
+              ("stablelm-3b", 1, 2048)]
 DECODE_STEPS = 4
 # stated in PERF.md before the first full run: the loss with the
 # kernel against the plain forward, relative; and the logits of prefill
@@ -2040,6 +2079,333 @@ def serve_traced(api, params) -> dict:
     return out
 
 
+def snap_engine(api, params, d, plan=None, tiers=None, graphs=True,
+                trace=False):
+    """An engine of the snapshot path: the main path's SERVE config with
+    cuts every SNAP_EVERY megasteps into ``d`` and an injector on
+    ``plan`` (an empty plan when None), replaying its step graphs or
+    running the eager megastep."""
+    from repro_torch.core import faults as faults_lib
+    from repro_torch.serve import EngineConfig, ServeEngine
+    fx = faults_lib.FaultInjector(
+        faults_lib.parse_fault_plan(plan) if plan else [], seed=FAULT_SEED)
+    return ServeEngine(api, params, EngineConfig(
+        **SERVE, max_queue=N_REQUESTS + 8, tiers=tiers, faults=fx,
+        snapshot_every=SNAP_EVERY, snapshot_dir=str(d),
+        trace=True if trace else None, device="cuda"),
+        _graphs=None if graphs else False)
+
+
+def snap_signature(eng) -> dict:
+    """What a restored run must reproduce: the reference test's
+    ``_signature`` (tokens, admission and done steps and failed records
+    in submission order, billing per path and per channel, fault stats)
+    with ``tier_speedup``."""
+    done = sorted(eng.completed)
+    ps = eng.paging_stats()
+    billing = {k: ps[k] for k in ("duplex_us", "serial_us", "page_ins",
+                                  "page_outs", "kernel_calls")}
+    billing["by_path"] = {p: {k: st[k] for k in ("duplex_us", "serial_us")}
+                          for p, st in ps["by_path"].items()}
+    billing["tiers"] = {n: {k: ch[k] for k in ("busy_us", "read_bytes",
+                                               "write_bytes")}
+                        for n, ch in ps["tiers"]["channels"].items()}
+    return {"tokens": [eng.completed[r].generated for r in done],
+            "timing": [(eng.completed[r].admitted_step,
+                        eng.completed[r].done_step) for r in done],
+            "errors": sorted((r.error["kind"], r.error.get("block", -1))
+                             for r in eng.failed.values()),
+            "billing": billing, "faults": dict(eng.stats()["faults"]),
+            "tier_speedup": ps["tier_speedup"]}
+
+
+def snapshot_sync_sites() -> dict:
+    """The source lines where a cut or a restore may read the device:
+    the snapshot module, the checkpoint writer, and the pool's
+    ``snapshot_state`` / ``load_state`` (file name -> allowed lines)."""
+    import inspect
+    from repro_torch.checkpoint import sharded
+    from repro_torch.serve import kv_pool, snapshot
+
+    def lines(obj):
+        src, first = inspect.getsourcelines(obj)
+        return set(range(first, first + len(src)))
+
+    return {"snapshot.py": lines(snapshot), "sharded.py": lines(sharded),
+            "kv_pool.py": lines(kv_pool.PagedKVPool.snapshot_state)
+            | lines(kv_pool.PagedKVPool.load_state)}
+
+
+def check_sync_sites(syncs: Counter, what: str) -> None:
+    """Every sync the watch recorded lies at a snapshot or checkpoint
+    site (``snapshot_sync_sites``); the steps between cuts stay
+    dispatch-only."""
+    allowed = snapshot_sync_sites()
+    bad = {}
+    for site, n in syncs.items():
+        name, _, line = site.split(" < ")[0].partition(":")
+        if int(line) not in allowed.get(name, ()):
+            bad[site] = n
+    if bad:
+        fail(f"{what}: the host synced outside the snapshot sites: {bad}")
+
+
+def pool_tensors(eng) -> list:
+    return [eng.pool.hbm, eng.pool.host_q, eng.pool.host_scale]
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def snapshot_pair(api, params, main: dict, name: str, tiers, shapes: dict,
+                  eager: bool) -> dict:
+    """One pool kind of the snapshot path: the uncrashed run (traced, for
+    the cuts' spans), the crashed run, the graphed restore, and with
+    ``eager`` the same restore on the eager megastep from a copy of the
+    crashed run's directory. Returns the readings and times."""
+    import gc
+    import shutil
+    from repro_torch.core.faults import CrashFault
+    from repro_torch.device import sync_watch
+    from repro_torch.kernels import duplex_stream as ds
+    prompts = np.random.default_rng(1).integers(
+        0, api.cfg.vocab, (N_REQUESTS, PROMPT_LEN)).astype(np.int32)
+    base = SNAP_DIR / name
+    shutil.rmtree(base, ignore_errors=True)
+
+    def submit(eng):
+        return [eng.submit(prompts[i], GEN, arrival_step=i * ARRIVAL_EVERY)
+                for i in range(N_REQUESTS)]
+
+    # 1. the uncrashed run
+    eng = snap_engine(api, params, base / "run", tiers=tiers, trace=True)
+    reqs = submit(eng)
+    flushes = []
+    flush = eng.pool.flush_dirty
+
+    def counted_flush(*a, **kw):
+        out = flush(*a, **kw)
+        flushes.append(out["page_outs"])
+        return out
+
+    eng.pool.flush_dirty = counted_flush
+    torch.cuda.synchronize()
+    ds.reset_launches()
+    with sync_watch() as syncs, stream_shapes(shapes):
+        t0 = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ds.LAUNCHES)
+    check_sync_sites(syncs, f"snapshot {name}: the uncrashed run")
+    if any(not np.array_equal(outs[r.rid], t)
+           for r, t in zip(reqs, main["tokens"])):
+        fail(f"snapshot {name}: the uncrashed run served other tokens than "
+             f"the main path")
+    taken = eng.stats()["snapshot"]["snapshots_taken"]
+    if taken <= 0 or taken != len(flushes):
+        fail(f"snapshot {name}: {taken} cuts, {len(flushes)} flushes")
+    if launches["quant_stream"] < sum(1 for n in flushes if n) or (
+            tiers is None and launches["quant_stream"]
+            <= main["launches"]["quant_stream"]):
+        fail(f"snapshot {name}: quant_stream launched "
+             f"{launches['quant_stream']} times for {flushes} flushed "
+             f"blocks (main path: {main['launches']['quant_stream']})")
+    sig = snap_signature(eng)
+    final = [t.clone() for t in pool_tensors(eng)]
+    cuts = [(a["megastep"], dur) for n, _, dur, a in eng.tracer.spans
+            if n == "snapshot_cut"]
+    cut_bytes = {p.name: sum(f.stat().st_size for f in p.iterdir())
+                 for p in sorted((base / "run").glob("step_*"))}
+    crash_at = (eng._fx.step + 1) // 2
+    tokens = sum(len(t) for t in sig["tokens"])
+    del eng
+    gc.collect()
+
+    # 2. the same run killed at transaction crash_at
+    eng = snap_engine(api, params, base / "crash", f"crash:@{crash_at}",
+                      tiers)
+    submit(eng)
+    try:
+        eng.run()
+        fail(f"snapshot {name}: crash:@{crash_at} never fired")
+    except CrashFault:
+        pass
+    crash_megastep = eng.megasteps
+    torch.cuda.synchronize()
+    del eng
+    gc.collect()
+    if eager:
+        shutil.copytree(base / "crash", base / "crash_eager")
+
+    def restored(d, graphs: bool) -> dict:
+        eng = snap_engine(api, params, d, f"crash:@{crash_at}", tiers,
+                          graphs=graphs)
+        static = [*eng._dev.values(), *eng.cache.values(),
+                  *pool_tensors(eng)]
+        torch.cuda.synchronize()
+        ds.reset_launches()
+        with (sync_watch() if graphs else contextlib.nullcontext(Counter())
+              ) as syncs, stream_shapes(shapes):
+            t0 = time.perf_counter()
+            info = eng.restore()
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            before = sum(len(r.generated) for r in
+                         [*eng.completed.values(), *eng.active()])
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        mode = "graphed" if graphs else "eager"
+        check_sync_sites(syncs, f"snapshot {name}: the {mode} restore")
+        # the pool's tensors stay the same objects in either mode; the
+        # eager megastep returns a new slot state where a replay writes
+        # the static one
+        now = [*eng._dev.values(), *eng.cache.values(), *pool_tensors(eng)]
+        if any(a is not b for a, b in zip(static if graphs else static[-3:],
+                                          now if graphs else now[-3:])):
+            fail(f"snapshot {name}: the {mode} restore rebound a static "
+                 f"tensor")
+        eng.pool.check_invariants()
+        got = snap_signature(eng)
+        if got != sig:
+            bad = [k for k in sig if got[k] != sig[k]]
+            fail(f"snapshot {name}: the {mode} restored run differs from "
+                 f"the uncrashed run in {bad}")
+        want_cuts = sum(1 for m, _ in cuts if m >= info["restored_step"])
+        if eng.stats()["snapshot"]["snapshots_taken"] != want_cuts:
+            fail(f"snapshot {name}: the {mode} restored run took "
+                 f"{eng.stats()['snapshot']['snapshots_taken']} cuts, the "
+                 f"uncrashed run {want_cuts} from megastep "
+                 f"{info['restored_step']} on")
+        if not all(bitwise_equal(a, b)
+                   for a, b in zip(pool_tensors(eng), final)):
+            fail(f"snapshot {name}: the {mode} restored pool's bytes differ "
+                 f"from the uncrashed run's")
+        if not 0 < info["restored_step"] < crash_megastep:
+            fail(f"snapshot {name}: restored cut {info['restored_step']} is "
+                 f"not between the run's start and the crash (megastep "
+                 f"{crash_megastep})")
+        after = tokens - before
+        return {"restore": info, "restore_s": restore_s, "run_s": run_s,
+                "tokens_after_restore": after,
+                "tokens_per_s": after / run_s,
+                "launches": dict(ds.LAUNCHES), "syncs": dict(syncs),
+                "snapshot_stats": eng.stats()["snapshot"]}
+
+    out = {"cuts": [{"megastep": m, "ms": us / 1e3} for m, us in cuts],
+           "cut_bytes": cut_bytes, "flushed_blocks": flushes,
+           "launches": launches, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "syncs": dict(syncs),
+           "crash_at": crash_at, "crash_megastep": crash_megastep,
+           "graphed": restored(base / "crash", True)}
+    if eager:
+        out["eager"] = restored(base / "crash_eager", False)
+    g = out["graphed"]
+    print(f"snapshot {name}: {taken} cuts of {list(cut_bytes.values())} "
+          f"bytes in {[round(c['ms'], 3) for c in out['cuts']]} ms; "
+          f"crash:@{crash_at} restored from megastep "
+          f"{g['restore']['restored_step']} in {g['restore_s']:.3f} s, "
+          f"then {g['tokens_per_s']:.1f} tok/s; signature, cuts and pool "
+          f"bytes equal the uncrashed run's", flush=True)
+    return out
+
+
+def serve_snapshot(api, params, main: dict, shapes: dict) -> dict:
+    """The snapshot path, flat and tiered (``snapshot_pair``), printed as
+    one JSON line with the card's name and power limit."""
+    out = {"flat": snapshot_pair(api, params, main, "flat", None, shapes,
+                                 eager=True),
+           "tiered": snapshot_pair(api, params, main, "tiered", TIER_SPEC,
+                                   shapes, eager=False),
+           "card": gpu_line()}
+    print(json.dumps({"serve_snapshot": out}), flush=True)
+    return out
+
+
+def dense_width_phase(arch: str, B: int, S: int) -> dict:
+    """One full-width forward of ``arch`` (weights drawn on the card from
+    a seed) with the flash kernel and one without, under
+    ``inference_mode``: the kernel launched once per layer; the logits
+    within LOGITS_ATOL of the plain forward's, which a control (the plain
+    forward with the last 64 queries losing their first 64 keys) must
+    exceed; one wall reading each and one profile of the kernel's
+    forward. The model is freed before returning."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as nn
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+
+    api = registry.build(arch, smoke=False, device="cuda")
+    cfg = api.cfg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (B, S))).cuda()
+    L = cfg.num_layers
+    with torch.inference_mode():
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        lk, _ = T.forward(params, cfg, tokens, None, use_kernel=True)
+        torch.cuda.synchronize()
+        wall_kernel = time.perf_counter() - t0
+        launches = fa.LAUNCHES["flash_attention"]
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        lp, _ = T.forward(params, cfg, tokens, None)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+        if launches != L or fa.LAUNCHES["flash_attention"]:
+            fail(f"{arch}: forward launched the kernel {launches} times "
+                 f"with use_kernel (want {L}) and "
+                 f"{fa.LAUNCHES['flash_attention']} without (want 0)")
+        if lk.shape != (B, S, cfg.vocab) or not torch.isfinite(lk).all():
+            fail(f"{arch}: forward logits {tuple(lk.shape)} not finite")
+        diff = (lk.float() - lp.float()).abs().max().item()
+        if not diff <= LOGITS_ATOL:
+            fail(f"{arch}: logits with the kernel differ from the plain "
+                 f"forward's by {diff} (limit {LOGITS_ATOL})")
+        lc, _ = T.forward(params, dataclasses.replace(cfg, window=S - 64),
+                          tokens, None)
+        control = (lc.float() - lp.float()).abs().max().item()
+        del lc, lk, lp
+        if not control > LOGITS_ATOL:
+            fail(f"{arch}: the control fault moved the logits by {control}, "
+                 f"within the limit {LOGITS_ATOL}")
+        # one device reading: a single profile of one forward, taken as
+        # it comes (the launch counter above is the check of the launches;
+        # the profiler's own count of them is reported beside it)
+        count, ns, _ = _profile(lambda: T.forward(params, cfg, tokens, None,
+                                                  use_kernel=True), iters=1)
+    sizes = []
+    nn.tree_map(lambda t: sizes.append(t.numel() * t.element_size()), params)
+    del params
+    torch.cuda.empty_cache()
+    out = {"arch": arch, "batch": B, "seq": S, "layers": L,
+           "head_dim": cfg.resolved_head_dim(), "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "param_bytes": sum(sizes),
+           "init_s": init_s, "launches": launches,
+           "forward_kernel_ms": wall_kernel * 1e3,
+           "forward_plain_ms": wall_plain * 1e3,
+           "forward_device_ms": sum(ns.values()) / 1e6,
+           "device_ops": sum(count.values()),
+           "flash_kernel_ms": sum(t for n, t in ns.items()
+                                  if "flash_kernel" in n) / 1e6,
+           "flash_kernels_profiled": sum(c for n, c in count.items()
+                                         if "flash_kernel" in n),
+           "logits_max_abs_diff": diff,
+           "control_logits_max_abs_diff": control, "card": gpu_line()}
+    print(json.dumps({"dense_width": out}), flush=True)
+    return out
+
+
 def sim_cases() -> dict:
     """Every simulation of the simulator path, by name: (channel preset,
     stream specs, policy, SimConfig fields, lockstep)."""
@@ -2392,6 +2758,9 @@ def card_main(cpu: tuple) -> int:
     print(json.dumps({"kernel_sweep": sweep}), flush=True)
     kernels = [measure(name, PATH_SHAPES[name]) for name in STREAMS]
     kernels.append(measure_l2(PATH_SHAPES["l2_distance"]))
+    # quant_stream at the snapshot cuts' flush shape, also measured before
+    # any graph is captured
+    flush_row = measure("quant_stream", FLUSH_SHAPE)
     mark("stream_and_l2_kernels")
     check_flash()
     # device_events takes a profile as measured only when two agree: the
@@ -2399,8 +2768,9 @@ def card_main(cpu: tuple) -> int:
     flash_row = measure_flash((4, 2048, 9, 3, 64), {})
     print(json.dumps({"flash_attention_paligemma": measure_flash(
         (2, 512, 8, 1, 256), {"prefix_len": 256})}), flush=True)
-    # hd 80 and 112: no model of the port runs them, so no path launches
-    # them; timed beside SDPA at a path shape of a config that has them
+    # hd 80, 112 and 128 timed beside SDPA at a prefill shape of a config
+    # that has them (stablelm-3b and llama3.2-3b run on the dense-width
+    # path; kimi-k2 is not ported yet)
     print(json.dumps({"flash_attention_widths": [
         {"config": arch, **measure_flash(shape, {})}
         for arch, shape in FLASH_WIDTHS]}), flush=True)
@@ -2445,6 +2815,10 @@ def card_main(cpu: tuple) -> int:
     mark("rwkv_serve")
     del rwkv_api, rwkv_params
     torch.cuda.empty_cache()
+    dense = {}
+    for arch, B, S in DENSE_RUNS:
+        dense[arch] = dense_width_phase(arch, B, S)
+        mark(f"dense_{arch}")
 
     seen = {name: shapes_seen[name].most_common(1)[0][0] for name in STREAMS}
     seen["l2_distance"] = l2_shapes.most_common(1)[0][0]
@@ -2465,6 +2839,8 @@ def card_main(cpu: tuple) -> int:
     # measured at the smollm-135m prefill shape; launched per forward
     flash_row["launches"] = forward["smollm-135m"]["launches"]
     flash_row["launches_paligemma"] = forward["paligemma-3b"]["launches"]
+    flash_row["launches_dense"] = {arch: d["launches"]
+                                   for arch, d in dense.items()}
     kernels.append(flash_row)
     # measured at the rwkv6-7b prefill shape; launched per forward, never
     # in decode
@@ -2476,6 +2852,29 @@ def card_main(cpu: tuple) -> int:
     mark("kernel_rows")
     profile_serving(api, params, main_run, walls)
     mark("serving_profile")
+    # after every profile: with it earlier in the process, the profiler
+    # lost device events of rwkv6-7b's decode-step profiles (PERF.md)
+    snap_shapes: dict = {}
+    snap = serve_snapshot(api, params, main_run, snap_shapes)
+    # every stream shape the snapshot runs handed a kernel (the cuts'
+    # flushes among them), held against the plain version
+    check_kernels(sorted({s for cnt in snap_shapes.values() for s in cnt}))
+    flushed = [snap[kind]["flushed_blocks"] for kind in ("flat", "tiered")]
+    if max(max(f) for f in flushed) != FLUSH_SHAPE[0]:
+        fail(f"the snapshot cuts flushed {flushed} blocks; the flush row "
+             f"was measured at {FLUSH_SHAPE}")
+    for row in kernels:
+        if row["name"] in STREAMS:
+            # the uncrashed flat snapshot run: its cuts' flushes on top
+            row["launches_snapshot"] = \
+                snap["flat"]["launches"][row["name"]]
+        if row["name"] == "quant_stream":
+            row.update({f"flush_{k}": flush_row[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err", "launch_floor_ms")})
+            row["flushes"] = {kind: snap[kind]["flushed_blocks"]
+                              for kind in ("flat", "tiered")}
+    mark("snapshot")
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": time.perf_counter() - start}), flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """Architecture configs of the port (one module per arch) + lookup helpers.
 
 Mirror of ``repro/configs/__init__.py``; the archs the port runs so far:
-the dense decoders smollm-135m (serving, prefill, loss) and paligemma-3b
-(prefill, loss), and rwkv6-7b (serving, prefill, loss).
+the dense decoders smollm-135m (serving, prefill, loss), stablelm-3b,
+qwen2.5-14b, llama3.2-3b and paligemma-3b (prefill, loss; the SMOKE
+configs serve too), and rwkv6-7b (serving, prefill, loss).
 """
 
 import importlib
@@ -10,8 +11,11 @@ import importlib
 # arch-id -> module name
 _MODULES = {
     "smollm-135m": "smollm_135m",
-    "paligemma-3b": "paligemma_3b",
+    "stablelm-3b": "stablelm_3b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "llama3.2-3b": "llama3_2_3b",
     "rwkv6-7b": "rwkv6_7b",
+    "paligemma-3b": "paligemma_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -36,7 +36,9 @@ A fifth, unrecoverable kind — ``crash`` — models whole-process death:
 ``tick()`` raises :class:`CrashFault` the instant the clock reaches the
 event, abandoning the engine mid-transaction (possibly mid-dispatch
 with a megastep in flight). Nothing in the serving stack catches it;
-the port has no snapshot/journal layer yet to recover from one.
+recovery is a restore from the snapshot layer's last consistent cut and
+write-ahead journal (``serve.snapshot``), after which
+``disarm_crashes`` keeps the death just recovered from from re-firing.
 
 The injector is pure host-side bookkeeping: with no injector attached
 the pool/engine fault paths are never entered (zero-cost when
@@ -76,7 +78,7 @@ class CrashFault(RuntimeError):
     in flight — the exception abandons the engine mid-boundary with
     partial state, exactly like a SIGKILL. Nothing in the serving stack
     catches it; recovery is only possible from an on-disk snapshot +
-    journal (not ported). ``at_step`` records which scheduled
+    journal (``serve.snapshot``). ``at_step`` records which scheduled
     event fired so a restore harness can disarm it (or keep only later
     crashes) on the next attempt.
     """
@@ -258,6 +260,23 @@ class FaultInjector:
 
     def rearm_poison(self, block: int) -> None:
         self._poison_armed.append(block)
+
+    # -- crash/restore ------------------------------------------------------
+    def disarm_crashes(self, after: int | None = None) -> int:
+        """Drop scheduled crash events — all of them, or (with ``after``)
+        only those with ``at_step <= after``. A restored engine calls
+        this so the death it just recovered from does not re-fire when
+        deterministic replay walks the clock back over ``at_step``; a
+        chaos harness that wants repeated crashes passes ``after`` (the
+        ``CrashFault.at_step`` it caught) to keep later ones live.
+        Returns the number of events removed."""
+        keep = [e for e in self.events
+                if e.kind != "crash"
+                or (after is not None and e.at_step > after)]
+        removed = len(self.events) - len(keep)
+        self.events = keep
+        self._cursor = sum(1 for e in keep if e.at_step <= self.step)
+        return removed
 
 
 def random_plan(seed: int, *, n_channels: int, n_blocks: int,

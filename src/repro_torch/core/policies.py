@@ -473,6 +473,51 @@ def reset_slots(policy: Policy, params: PolicyParams, capacity: int,
 
 
 # ---------------------------------------------------------------------------
+# state round-trip — snapshot/restore support for every registered policy.
+# ---------------------------------------------------------------------------
+
+def _state_leaves(state: Any) -> list:
+    """A policy state's tensors in the reference's pytree flatten order:
+    ``()`` has none, a bare tensor is its own leaf, a NamedTuple its
+    fields in order."""
+    if isinstance(state, tuple):
+        return [leaf for part in state for leaf in _state_leaves(part)]
+    return [state]
+
+
+def policy_state_leaves(state: Any) -> list[np.ndarray]:
+    """Flatten a policy state (any of the registry's shapes: ``()``, a
+    bare int32, a NamedTuple of tensors) into host arrays for
+    checkpointing. Leaf order matches :func:`rebuild_policy_state`'s
+    template, so a snapshot round-trips bit-exactly through the pair."""
+    return [leaf.detach().cpu().numpy() for leaf in _state_leaves(state)]
+
+
+def rebuild_policy_state(template: Any, leaves) -> Any:
+    """Rebuild a policy state from :func:`policy_state_leaves` output.
+
+    ``template`` is a freshly initialized state of the same policy
+    (``policy.init(params, capacity)``): it supplies the structure and
+    each leaf's dtype, shape and device, which the flat host arrays do
+    not carry."""
+    n = len(_state_leaves(template))
+    if n != len(leaves):
+        raise ValueError(
+            f"policy state arity mismatch: template has {n} leaves, "
+            f"snapshot has {len(leaves)} — was the engine restored with a "
+            "different policy?")
+    it = iter(leaves)
+
+    def build(tpl):
+        if isinstance(tpl, tuple):
+            return type(tpl)(*(build(part) for part in tpl))
+        return torch.tensor(np.asarray(next(it)).reshape(tuple(tpl.shape)),
+                            dtype=tpl.dtype, device=tpl.device)
+
+    return build(template)
+
+
+# ---------------------------------------------------------------------------
 # megastep feedback aggregation — K per-step Feedbacks folded in one call.
 # ---------------------------------------------------------------------------
 

@@ -1,7 +1,9 @@
 """Serving driver: multi-tenant continuous batching with duplex-paged KV
 (port of ``repro/launch/serve.py``; ``--tiers`` backs the pool's host
 side with DDR5/CXL channels, ``--faults`` injects a fault plan,
-``--trace OUT.JSON`` exports a Perfetto trace of the measured run).
+``--trace OUT.JSON`` exports a Perfetto trace of the measured run,
+``--snapshot-dir`` / ``--snapshot-every`` take crash-consistent snapshots
+and ``--restore`` resumes a crashed run from them).
 
 Requests arrive staggered into the ``ServeEngine`` megastep loop; the
 admission policy picks which waiting work joins the running set — LLM
@@ -16,6 +18,10 @@ reference's schema.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --batch 4 --requests 8 --prompt-len 8 --gen 16 --arrival-every 2 \
       --tenants redis,vectordb
+
+A run killed by ``--faults crash:@S`` with ``--snapshot-dir D
+--snapshot-every N`` exits 3 when a snapshot survived (1 when none did);
+the same flags plus ``--restore`` resume it from ``D``.
 
 Runs on the GPU; ``--device cpu`` is the only way onto the CPU. Weights
 and prompts are random, from fixed seeds.
@@ -37,6 +43,7 @@ from repro_torch.core import faults as faults_lib
 from repro_torch.models import registry as R
 from repro_torch.serve import (EngineConfig, EngineStallError, KVStoreTenant,
                                ServeEngine, VectorSearchTenant)
+from repro_torch.serve.snapshot import journal_length, newest_valid_snapshot
 
 KNOWN_TENANTS = ("redis", "vectordb")
 
@@ -134,10 +141,24 @@ def main() -> int:
                         "block B corrupts), degrade:C@S+D=F (bandwidth "
                         "x F for D transactions), transient:C@S+D=P "
                         "(transfer error probability P), crash:@S "
-                        "(process death; nothing recovers it). Requires "
+                        "(process death at transaction S; --restore "
+                        "resumes from the last snapshot). Requires "
                         "paging; offline events require --tiers")
     p.add_argument("--fault-seed", type=int, default=0,
                    help="seed for the injector's transient-retry draws")
+    p.add_argument("--snapshot-dir", default=None,
+                   help="directory for crash-consistent engine snapshots "
+                        "+ the write-ahead journal (enables --restore "
+                        "after a crash)")
+    p.add_argument("--snapshot-every", type=int, default=0,
+                   help="take a consistent cut every N megasteps "
+                        "(0 = snapshots off; requires --snapshot-dir "
+                        "and paging)")
+    p.add_argument("--restore", action="store_true",
+                   help="resume from the newest valid snapshot in "
+                        "--snapshot-dir instead of submitting a fresh "
+                        "workload: journaled submits are replayed and "
+                        "the run continues bit-exactly")
     p.add_argument("--stall-boundaries", type=int, default=64,
                    help="consecutive zero-progress megastep boundaries "
                         "before run() raises EngineStallError")
@@ -159,12 +180,25 @@ def main() -> int:
     tenant_names = args.tenants            # validated at argparse time
     if tenant_names and args.no_paging:
         p.error("tenants serve from the paged pool; drop --no-paging")
+    if tenant_names and args.snapshot_every > 0:
+        p.error("snapshots cover the LLM serving state only; tenant op "
+                "streams are not crash-consistent — drop --tenants or "
+                "--snapshot-every")
     if args.tiers and args.no_paging:
         p.error("--tiers configures the paged pool's host side; drop "
                 "--no-paging")
     if args.faults and args.no_paging:
         p.error("--faults targets the paged memory hierarchy; drop "
                 "--no-paging")
+    if args.snapshot_every > 0 and not args.snapshot_dir:
+        p.error("--snapshot-every needs --snapshot-dir")
+    if args.snapshot_every > 0 and args.no_paging:
+        p.error("snapshots cover the paged memory hierarchy; drop "
+                "--no-paging")
+    if args.restore and not (args.snapshot_every > 0 and
+                             args.snapshot_dir):
+        p.error("--restore needs --snapshot-dir and --snapshot-every "
+                "matching the crashed run")
 
     api = R.build(args.arch, smoke=not args.full, device=args.device)
     params = api.init(torch.Generator().manual_seed(0))
@@ -181,15 +215,22 @@ def main() -> int:
         paging=not args.no_paging, megastep=args.megastep,
         tiers=args.tiers, tier_migrate=not args.no_tier_migrate,
         pipeline_depth=args.pipeline_depth,
-        stall_boundaries=args.stall_boundaries, device=args.device)
+        stall_boundaries=args.stall_boundaries,
+        snapshot_every=args.snapshot_every,
+        snapshot_dir=args.snapshot_dir, device=args.device)
     prompts = np.random.default_rng(1).integers(
         0, api.cfg.vocab, (args.requests, args.prompt_len)).astype(np.int32)
 
-    def build_and_submit(trace=True):
+    def build_and_submit(*, snapshots=True, submit=True, trace=True):
         # a FaultInjector is stateful (clock + retry RNG): each engine
         # build gets a fresh one so warmup and the measured run replay
         # the identical fault schedule.
         run_cfg = cfg
+        if not snapshots and cfg.snapshot_every > 0:
+            # the warmup engine must never write into the measured run's
+            # snapshot directory
+            run_cfg = dataclasses.replace(run_cfg, snapshot_every=0,
+                                          snapshot_dir=None)
         if args.trace and trace:
             # measured engine only: the warmup run's spans and channel
             # intervals would pollute the exported timeline.
@@ -199,7 +240,17 @@ def main() -> int:
                 run_cfg, faults=faults_lib.FaultInjector(
                     faults_lib.parse_fault_plan(args.faults),
                     seed=args.fault_seed))
+        elif args.restore:
+            # the snapshot may carry injector state (degraded or offline
+            # channels, armed poisons, the transaction clock): resume it
+            # into a fresh injector with no new events scheduled
+            run_cfg = dataclasses.replace(
+                run_cfg, faults=faults_lib.FaultInjector(
+                    [], seed=args.fault_seed))
         engine = ServeEngine(api, params, run_cfg)
+        if not submit:
+            # --restore: the workload comes from the snapshot + journal
+            return engine, []
         if "redis" in tenant_names:
             kv = engine.add_tenant(KVStoreTenant(
                 n_slots=2, ops_per_step=1, store_blocks=16))
@@ -215,10 +266,29 @@ def main() -> int:
                 for i in range(args.requests)]
         return engine, rids
 
-    def crash_report(engine, exc) -> dict:
+    def _snapshot_report() -> dict | None:
+        """What recovery has to work with: the newest cut that passes its
+        checksums and how much journal lies past it. ``resumable`` is the
+        exit-code-3 contract: a later ``--restore`` with this directory
+        resumes from ``newest_valid``."""
+        if args.snapshot_every <= 0:
+            return None
+        newest = newest_valid_snapshot(args.snapshot_dir)
+        return {
+            "dir": args.snapshot_dir,
+            "snapshot_every": args.snapshot_every,
+            "newest_valid": newest,
+            "journal_entries": (
+                journal_length(args.snapshot_dir, from_step=newest)
+                if newest is not None else 0),
+            "resumable": newest is not None,
+        }
+
+    def _crash_report(engine, exc) -> dict:
         """The reference's operator report for a run the engine could not
-        finish: exception identity, fault counters and every failed
-        request's structured error (no snapshot layer to resume from)."""
+        finish: exception identity, fault counters, every failed
+        request's structured error and (with snapshots) the recovery
+        prospects."""
         err = {"error": {"type": type(exc).__name__, "message": str(exc)},
                "arch": args.arch, "requests": args.requests,
                "faults_plan": args.faults,
@@ -226,21 +296,43 @@ def main() -> int:
                "faults": engine.stats()["faults"],
                "failed_requests": {int(r.rid): r.error
                                    for r in engine.failed.values()},
-               "snapshot": None}
+               "snapshot": _snapshot_report()}
         if isinstance(exc, EngineStallError):
             err["error"]["stuck_rids"] = exc.rids
         return err
 
+    def _crash_exit(report: dict) -> int:
+        """3 = crashed but resumable (--restore will recover); 1 =
+        unrecoverable (no snapshots, or no cut survived intact)."""
+        snap = report.get("snapshot")
+        return 3 if snap and snap["resumable"] else 1
+
     if not args.no_warmup:
         # the same workload once first: builds the CUDA kernels and warms
         # the libraries, so the measured run is steady-state serving.
-        warm, _ = build_and_submit(trace=False)
+        warm, _ = build_and_submit(snapshots=False, trace=False)
+        if warm._fx is not None:
+            # the warmup must not die: the crash events belong to the
+            # measured run's injector
+            warm._fx.disarm_crashes()
         try:
             warm.run()
         except (RuntimeError, ValueError) as e:
-            print(json.dumps(crash_report(warm, e)))
+            print(json.dumps(_crash_report(warm, e)))
             return 1
-    engine, rids = build_and_submit()
+    restore_info = None
+    if args.restore:
+        engine, rids = build_and_submit(submit=False)
+        try:
+            restore_info = engine.restore()
+        except (OSError, ValueError, RuntimeError) as e:
+            print(json.dumps({
+                "error": {"type": type(e).__name__, "message": str(e)},
+                "snapshot": _snapshot_report(),
+            }))
+            return 1
+    else:
+        engine, rids = build_and_submit()
 
     if engine.device.type == "cuda":
         torch.cuda.synchronize()
@@ -248,12 +340,15 @@ def main() -> int:
     try:
         outs = engine.run()
     except (RuntimeError, ValueError) as e:
-        print(json.dumps(crash_report(engine, e)))
-        return 1
+        report = _crash_report(engine, e)
+        print(json.dumps(report))
+        return _crash_exit(report)
     if engine.device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.monotonic() - t0
-    total_tokens = sum(len(outs[r]) for r in rids if r in outs)
+    total_tokens = (sum(len(outs[r]) for r in rids if r in outs)
+                    if not args.restore
+                    else sum(len(v) for v in outs.values()))
 
     est = engine.stats()
     print(f"served {args.requests} requests / {total_tokens} tokens in "
@@ -274,6 +369,16 @@ def main() -> int:
               f"recovered, {f['quarantined']} quarantined, "
               f"{f['evacuated']} evacuated, {f['shed']} shed, "
               f"{len(engine.failed)} failed requests")
+    if args.snapshot_every > 0:
+        s = est["snapshot"]
+        mode = (f"restored from cut {restore_info['restored_step']}, "
+                f"{restore_info['pending_resubmits']} journaled submits "
+                f"replayed, {restore_info['casualties']} casualties"
+                if restore_info is not None else
+                f"{s['snapshots_taken']} cuts taken")
+        print(f"snapshots (every {args.snapshot_every} megasteps -> "
+              f"{args.snapshot_dir}): {mode}, "
+              f"{s['journal_entries']} journal entries")
     if engine.paged and engine.pool.tiered:
         ts = engine.pool.tier_stats()
         print(f"tiered host pool ({args.tiers}): "
@@ -324,7 +429,7 @@ def main() -> int:
         "failed_requests": {int(r.rid): r.error
                             for r in engine.failed.values()},
         "snapshot": _round(est["snapshot"]),
-        "restore": None,
+        "restore": restore_info,
         "paging": _round(engine.paging_stats()),
         "trace": _round(trace_info) if trace_info else None,
     }

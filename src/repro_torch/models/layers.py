@@ -36,13 +36,14 @@ NEG_INF = -1e30  # large-negative in f32; avoids bf16 -inf NaN pitfalls
 def dense_init(gen: torch.Generator, lead: tuple, in_dim: int, out_dim: int,
                dtype=DEFAULT_DTYPE) -> torch.Tensor:
     scale = 1.0 / math.sqrt(in_dim)
-    return (torch.randn((*lead, in_dim, out_dim), generator=gen)
-            * scale).to(dtype)
+    return (torch.randn((*lead, in_dim, out_dim), generator=gen,
+                        device=gen.device) * scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype=DEFAULT_DTYPE) -> torch.Tensor:
-    return (torch.randn((vocab, dim), generator=gen) * 0.02).to(dtype)
+    return (torch.randn((vocab, dim), generator=gen, device=gen.device)
+            * 0.02).to(dtype)
 
 
 def rmsnorm_init(lead: tuple, dim: int, dtype=DEFAULT_DTYPE) -> dict:

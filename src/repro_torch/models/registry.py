@@ -1,7 +1,8 @@
 """Model registry — uniform API over the port's architectures.
 
 Mirror of ``repro/models/registry.py`` for the dense decoder
-(``_lm_api``: smollm-135m, and paligemma-3b with its prefix-LM prefix)
+(``_lm_api``: smollm-135m, stablelm-3b, qwen2.5-14b, llama3.2-3b, and
+paligemma-3b with its prefix-LM prefix)
 and RWKV6 (``_rwkv_api``: rwkv6-7b): ``build(arch_id, smoke=, device=)``
 returns a ``ModelAPI`` whose members close over the arch config and the
 device. The dense ``forward`` and ``loss_fn`` run the chunked plain
@@ -23,7 +24,9 @@ from repro_torch.models import rwkv6, transformer
 from repro_torch.models.rwkv6 import RWKVConfig
 from repro_torch.models.transformer import LMConfig
 
-FAMILY = {"smollm-135m": "dense", "paligemma-3b": "vlm", "rwkv6-7b": "ssm"}
+FAMILY = {"smollm-135m": "dense", "stablelm-3b": "dense",
+          "qwen2.5-14b": "dense", "llama3.2-3b": "dense", "rwkv6-7b": "ssm",
+          "paligemma-3b": "vlm"}
 
 
 class ModelAPI(NamedTuple):

@@ -70,9 +70,11 @@ class LMConfig:
 
 def init(generator: torch.Generator, cfg: LMConfig,
          device: torch.device | str = "cpu") -> dict:
-    """Random weights from ``generator`` (a CPU ``torch.Generator``), with
-    the reference's distributions: N(0, 1/fan_in) projections, N(0, 0.02)
-    embeddings, unit norm scales. Moved to ``device`` at the end."""
+    """Random weights from ``generator``, with the reference's
+    distributions: N(0, 1/fan_in) projections, N(0, 0.02) embeddings,
+    unit norm scales. The draws run on the generator's device (a CUDA
+    generator keeps a 14 B-parameter init on the card); the tree is moved
+    to ``device`` at the end."""
     L, D, dt = cfg.num_layers, cfg.d_model, cfg.dtype
     hd = cfg.resolved_head_dim()
     qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd

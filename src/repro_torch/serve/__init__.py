@@ -1,6 +1,6 @@
 """Multi-tenant continuous-batching serving over the duplex-paged KV pool
-(port of ``repro.serve``: the flat and tiered pools, the fault layer and
-the tracing plane; no snapshots or sharding).
+(port of ``repro.serve``: the flat and tiered pools, the fault layer, the
+tracing plane and crash-consistent snapshots; no sharding).
 
   RequestQueue — admission via the ``core.policies`` Policy protocol; LLM
                  prefills and tenant requests (declared ``TrafficProfile``)
@@ -35,7 +35,12 @@ the tracing plane; no snapshots or sharding).
   Tracer       — the observability plane (``EngineConfig.trace``):
                  boundary spans on the host clock, per-channel duplex busy
                  timelines on the modelled clock, fault instants, Perfetto
-                 export.
+                 export;
+  SnapshotManager — crash consistency (``EngineConfig.snapshot_every``):
+                 consistent cuts at megastep boundaries (pipeline drained,
+                 dirty HBM flushed through the billed path), a crc-framed
+                 write-ahead journal, and ``ServeEngine.restore()``, which
+                 resumes a crashed run bit-exactly.
 """
 
 from repro_torch.core.faults import (FaultEvent, FaultInjector,
@@ -46,6 +51,8 @@ from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.kv_pool import PagedKVPool
 from repro_torch.serve.queue import (FAILED, Request, RequestQueue,
                                      TrafficProfile)
+from repro_torch.serve.snapshot import (SnapshotError, SnapshotManager,
+                                        fresh_snapshot_stats)
 from repro_torch.serve.tiers import TieredHostPool
 from repro_torch.serve.trace import Tracer
 from repro_torch.serve.workloads import (KVStoreTenant, VectorSearchTenant,
@@ -53,6 +60,8 @@ from repro_torch.serve.workloads import (KVStoreTenant, VectorSearchTenant,
 
 __all__ = ["EngineConfig", "EngineStallError", "FAILED", "FaultEvent",
            "FaultInjector", "KVStoreTenant", "PagedKVPool", "Request",
-           "RequestQueue", "ServeEngine", "StepGraphs", "TieredHostPool",
-           "Tracer", "TrafficProfile", "VectorSearchTenant", "WorkloadAPI",
-           "parse_fault_plan", "random_plan", "reference_decode"]
+           "RequestQueue", "ServeEngine", "SnapshotError",
+           "SnapshotManager", "StepGraphs", "TieredHostPool", "Tracer",
+           "TrafficProfile", "VectorSearchTenant", "WorkloadAPI",
+           "fresh_snapshot_stats", "parse_fault_plan", "random_plan",
+           "reference_decode"]

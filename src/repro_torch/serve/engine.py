@@ -4,10 +4,12 @@ Port of ``repro/serve/engine.py``, with tenants (``add_tenant``: the
 KV-store and vector-search ``WorkloadAPI``s of ``serve/workloads.py``),
 the tiered host pool (``EngineConfig.tiers``, boundary migrations), the
 fault layer (``EngineConfig.faults``) and the tracing plane
-(``EngineConfig.trace``: ``plan`` / ``dispatch`` / ``reconcile`` spans on
-the host clock, the pool's channel timelines on the modelled clock, fault
-instants; ``metrics()``), without snapshots. The structure is the
-reference's:
+(``EngineConfig.trace``: ``plan`` / ``dispatch`` / ``reconcile`` /
+``snapshot_cut`` / ``restore`` spans on the host clock, the pool's channel
+timelines on the modelled clock, fault instants; ``metrics()``) and the
+crash-consistency layer (``EngineConfig.snapshot_every``: consistent cuts,
+a write-ahead journal and ``restore()``, ``serve/snapshot.py``). The
+structure is the reference's:
 
   1. **admission** at megastep boundaries — free batch slots, and each
      tenant's free slots, are offered to the ``RequestQueue``, whose
@@ -87,14 +89,8 @@ from repro_torch.serve.kv_pool import PagedKVPool
 from repro_torch.serve.queue import (DECODE, DONE, FAILED, PREFILL,
                                      STATE_OF_CODE, Request, RequestQueue,
                                      S_DECODE, S_DONE, S_EMPTY, S_PREFILL)
+from repro_torch.serve.snapshot import SnapshotManager, fresh_snapshot_stats
 from repro_torch.serve.trace import Tracer
-
-
-def fresh_snapshot_stats() -> dict:
-    """The ``stats()["snapshot"]`` schema of the reference, zeroed: the
-    snapshot layer is not ported yet."""
-    return {"snapshots_taken": 0, "journal_entries": 0,
-            "restore_replayed": 0, "resubmitted": 0, "casualties": 0}
 
 
 class EngineStallError(RuntimeError):
@@ -186,6 +182,12 @@ class EngineConfig:
                                 # the pool's transactions; needs paging
     stall_boundaries: int = 64  # run(): consecutive zero-progress
                                 # boundaries before EngineStallError
+    snapshot_every: int = 0     # crash-consistent cut cadence in megastep
+                                # boundaries (serve.snapshot); 0 = disabled,
+                                # zero hooks anywhere on the hot path
+    snapshot_dir: str | None = None
+                                # snapshot + write-ahead-journal directory;
+                                # required when snapshot_every > 0
     trace: object = None        # observability plane (serve.trace): a
                                 # Tracer, True (in-memory), or a path str
                                 # for Perfetto export. None = disabled,
@@ -481,6 +483,20 @@ class ServeEngine:
         # transaction and the admission queue
         self.tenants: dict[str, object] = {}
         self._reserved_blocks = 0   # HBM headroom promised to tenants
+        # crash consistency (serve.snapshot): None when disabled — every
+        # hook sits behind one ``is not None``, so a disabled engine runs
+        # as one built before this layer.
+        self._snap = None
+        if cfg.snapshot_every > 0:
+            if cfg.snapshot_dir is None:
+                raise ValueError("snapshot_every > 0 needs snapshot_dir")
+            if not self.paged:
+                raise ValueError(
+                    "snapshot/restore covers the paged memory hierarchy; "
+                    "this engine has paging disabled (or a non-pageable "
+                    "cache family)")
+            self._snap = SnapshotManager(cfg.snapshot_dir,
+                                         cfg.snapshot_every)
 
     # -- tenants -----------------------------------------------------------
     def add_tenant(self, workload):
@@ -536,6 +552,8 @@ class ServeEngine:
                     f"blocks; grow hbm_blocks or shrink prefill_chunk/"
                     f"block_tokens")
         self.queue.submit(req)
+        if self._snap is not None:
+            self._snap.note_submit(self, req)
         return req
 
     def active(self) -> list[Request]:
@@ -767,6 +785,7 @@ class ServeEngine:
             # ahead of it — a pipeline bubble.
             self.host_blocked += 1
         advanced = 0
+        tok_pairs = [] if self._snap is not None else None
         if rec.live:
             rb = rec.packed.wait()
             try:
@@ -809,6 +828,8 @@ class ServeEngine:
                     r.sync_megastep(dev_state, dev_consumed, dev_ngen, toks)
                     advanced += ((last.consumed + last.n_gen) - (c0 + g0)
                                  - sum(st.transition for st in steps_r))
+                    if tok_pairs is not None and toks:
+                        tok_pairs.append((r.rid, toks))
             except RuntimeError:
                 if self._tracer is not None:
                     self._tracer.instant(
@@ -816,6 +837,11 @@ class ServeEngine:
                         {"step": rec.now, "k": rec.k}, clock="host")
                 self._rollback_speculation(rec)
                 raise
+        if self._snap is not None:
+            self._snap.note_boundary(
+                self, rec.now, rec.k,
+                [r.rid for r in rec.live
+                 if r.admitted_step == rec.now], tok_pairs)
         if self._tracer is not None:
             self._tracer.span("reconcile", t0, step=rec.now, k=rec.k,
                               host_blocked=bubble, advanced=advanced)
@@ -963,8 +989,17 @@ class ServeEngine:
         done_steps = 0
         stall = 0
         while done_steps < limit:
+            if self._snap is not None:
+                # journaled resubmits due at this boundary come back
+                # before the pending() check: a restored engine whose cut
+                # had nothing live still owes them a replay.
+                self._snap.inject_resubmits(self)
             if not self.pending():
                 break
+            if self._snap is not None:
+                # a consistent cut if one is due (drains the pipeline,
+                # flushes dirty HBM through the billed path).
+                self._snap.maybe_cut(self)
             k = self._auto_megastep(limit - done_steps)
             rec = self._plan(k)
             self._dispatch(rec)
@@ -1283,21 +1318,24 @@ class ServeEngine:
     # -- reporting -----------------------------------------------------------
     def stats(self) -> dict:
         """Dispatch accounting in the reference's schema, with the fault
-        injector's counters (zeros without one; the snapshot layer, not
-        ported yet, reports zeros)."""
+        injector's and the snapshot layer's counters (zeros when
+        disabled)."""
         return {"steps": self.step_count,
                 "host_dispatches": self.host_dispatches,
                 "megasteps": self.megasteps,
                 "host_blocked": self.host_blocked,
                 "faults": (dict(self._fx.stats) if self._fx is not None
                            else fresh_fault_stats()),
-                "snapshot": fresh_snapshot_stats()}
+                "snapshot": (dict(self._snap.stats)
+                             if self._snap is not None
+                             else fresh_snapshot_stats())}
 
     def reset_stats(self) -> None:
         """Zero the counters without touching the clocks: ``step_count``
         and ``megasteps`` keep running (the fault plan and admission
         timing key on them), while dispatch/bubble counters, pool
-        billing, fault stats and the CAX scope tree restart."""
+        billing, fault stats, snapshot stats and the CAX scope tree
+        restart."""
         self.host_dispatches = 0
         self.host_blocked = 0
         if self.paged:
@@ -1305,7 +1343,24 @@ class ServeEngine:
         if self._fx is not None:
             self._fx.stats.clear()
             self._fx.stats.update(fresh_fault_stats())
+        if self._snap is not None:
+            self._snap.reset_stats()
         self.telemetry.reset()
+
+    def restore(self, step: int | None = None, *,
+                disarm_crashes: bool = True) -> dict:
+        """Load the newest valid snapshot (or ``step``) from
+        ``cfg.snapshot_dir`` into this engine and arm deterministic
+        journal replay; the next ``run()`` resumes bit-exactly. The
+        device state is copied into the engine's own tensors, which its
+        step graphs read. Returns the restore report (restored step,
+        journal stats, casualties)."""
+        if self._snap is None:
+            raise ValueError(
+                "restore needs snapshots enabled (snapshot_every > 0 "
+                "and snapshot_dir)")
+        return self._snap.restore_into(self, step,
+                                       disarm=disarm_crashes)
 
     def paging_stats(self) -> dict:
         if not self.paged:

@@ -30,9 +30,10 @@ reference's ``mode="drop"`` scatters silently drop out-of-range sentinel
 rows; the port drops them explicitly on the host before indexing.
 ``attach_trace`` lays each billed transaction's per-channel busy
 intervals on a ``serve.trace.Tracer``'s modelled clock (host arithmetic
-only). ``flush_dirty`` — with its ``"flush"`` trace site — and
-``snapshot_state`` / ``load_state`` belong to the snapshot layer, which is
-not ported yet.
+only). ``flush_dirty`` (the snapshot cut's durability barrier, billed and
+traced as ``"flush"``, through the ``quant_stream`` kernel) and
+``snapshot_state`` / ``load_state`` serve ``serve.snapshot``; a restore
+copies into the tier tensors in place too.
 """
 
 from __future__ import annotations
@@ -681,6 +682,149 @@ class PagedKVPool:
                 "/serve/tier_migrate", read_bytes=len(plan) * bb,
                 write_bytes=len(plan) * bb)
         return {"migrations": len(plan)}
+
+    # -- snapshot/restore ---------------------------------------------------
+    def flush_dirty(self, hint_path: str = "/serve/kv_cache") -> dict:
+        """Page out every dirty resident block through the billed path,
+        keeping residency — the durability barrier a snapshot cut takes
+        so its host tier holds a copy of all live KV state.
+
+        This is ``_execute``'s departure leg with no arrivals: blocks get
+        (or keep) a host-tier slot under the scope's preferred kind, the
+        write traffic is billed per channel (``co_issued=False``: there is
+        no read stream to pair against, so snapshot bandwidth is
+        phase-separated, never free), the data moves through the
+        ``quant_stream`` kernel, and checksums are stamped. The blocks
+        stay resident and become clean. Dispatch only on the device."""
+        outs = np.flatnonzero(self._dirty
+                              & (self.slot_of >= 0)).astype(np.int32)
+        if outs.size == 0:
+            return {"page_outs": 0, "flush_us": 0.0}
+        out_slots = self.slot_of[outs]
+        resolved = self.engine.hints.resolve(hint_path).resolved()
+        pref = self.host.preferred_kind(resolved)
+        out_hslots = self.host.place(outs, pref, refresh=False)
+        if self.tiered:
+            ch_rd, ch_wr, duplex_us, serial_us = \
+                self.host.bill_transaction(np.zeros((0,), np.int32),
+                                           out_hslots, co_issued=False)
+            self.stats["tier_us"] += duplex_us
+            self.stats["ddr5_us"] += self.host.ddr5_baseline_us(
+                ch_rd, ch_wr)
+            if self.engine.telemetry is not None:
+                self.engine.telemetry.attribute(
+                    hint_path, read_bytes=0.0,
+                    write_bytes=float(outs.size) * self.host.block_bytes)
+        else:
+            plan = self.engine.plan_kv_paging(
+                needed_host_blocks=[],
+                evict_hbm_blocks=out_slots.tolist(),
+                free_hbm_blocks=[],
+                host_dst_blocks=outs.tolist(),
+                block_bytes=self.host.block_bytes,
+                hint_path=hint_path)
+            serial = plan_serial(
+                [], [s.page_out for s in plan.slots if s.page_out],
+                self.engine.link)
+            duplex_us = plan.modelled_time_us()
+            serial_us = serial.modelled_time_us()
+            if self._fx is not None:
+                factor = self._fx.bandwidth_factor(0)
+                if factor < 1.0:
+                    duplex_us /= factor
+                    serial_us /= factor
+                extra = self._fx.retry_penalty_us(0, duplex_us)
+                duplex_us += extra
+                serial_us += extra
+            self._flat_bill_totals(0, int(outs.size), duplex_us)
+            if self._trace is not None:
+                self._flat_trace_txn(0, int(outs.size), duplex_us,
+                                     False, "flush")
+        bp = self.stats["by_path"].setdefault(hint_path,
+                                              _fresh_path_stats())
+        for st in (self.stats, bp):
+            st["duplex_us"] += duplex_us
+            st["serial_us"] += serial_us
+            st["page_outs"] += int(outs.size)
+        out_q, out_scale = kernel_ops.quant_kv_stream(
+            self.hbm.index_select(0, self._idx(out_slots)))
+        self.stats["kernel_calls"] += 1
+        oh = self._idx(out_hslots)
+        self.host_q.index_copy_(0, oh, out_q)
+        self.host_scale.index_copy_(0, oh, out_scale)
+        self._has_host[outs] = True
+        self._dirty[outs] = False
+        if self._fx is not None:
+            self._stamp += 1
+            self._csum_data[outs] = self._stamp
+            self._csum_stamp[outs] = self._stamp
+        return {"page_outs": int(outs.size), "flush_us": duplex_us}
+
+    def snapshot_state(self) -> dict:
+        """Every mutable field as checkpoint-ready host values: the raw
+        bf16 HBM rows as a CPU tensor (restoring from the int8 host
+        copies would be ``dequant(quant(x))`` — lossy — and break
+        bit-exact resume), the quantized host tier, the block table and
+        the accounting. The fault injector's own state is engine-level
+        and not captured here; the per-block checksum arrays are pool
+        state and ride along when an injector is attached. On a CUDA
+        device the copies wait for the device."""
+        state = {
+            "hbm": self.hbm.to("cpu", copy=True),
+            "host_q": self.host_q.to("cpu", copy=True),
+            "host_scale": self.host_scale.to("cpu", copy=True),
+            "slot_of": self.slot_of.copy(),
+            "block_at": self.block_at.copy(),
+            "last_use": self.last_use.copy(),
+            "allocated": self._allocated.copy(),
+            "dirty": self._dirty.copy(),
+            "has_host": self._has_host.copy(),
+            "host": self.host.snapshot_state(),
+            "meta": {
+                "clock": self._clock,
+                "stamp": self._stamp,
+                "stats": {k: ({p: dict(v) for p, v in val.items()}
+                              if k == "by_path" else val)
+                          for k, val in self.stats.items()},
+            },
+        }
+        if self._fx is not None:
+            state["csum_data"] = self._csum_data.copy()
+            state["csum_stamp"] = self._csum_stamp.copy()
+        return state
+
+    def load_state(self, state: dict) -> None:
+        """Inverse of ``snapshot_state`` onto a pool built with the same
+        config (shapes, tiers and faults come from construction). The
+        tier tensors are written in place (``copy_``): they stay the
+        same objects a captured CUDA graph may read."""
+        for dst, key in ((self.hbm, "hbm"), (self.host_q, "host_q"),
+                         (self.host_scale, "host_scale")):
+            src = torch.as_tensor(state[key])
+            if src.dtype != dst.dtype or src.shape != dst.shape:
+                raise ValueError(
+                    f"pool snapshot {key} is {src.dtype} {tuple(src.shape)}"
+                    f", this pool's {dst.dtype} {tuple(dst.shape)} — restore "
+                    "needs the crashed run's pool config")
+            dst.copy_(src)
+        self.slot_of = np.asarray(state["slot_of"], np.int32).copy()
+        self.block_at = np.asarray(state["block_at"], np.int32).copy()
+        self.last_use = np.asarray(state["last_use"], np.int64).copy()
+        self._allocated = np.asarray(state["allocated"], bool).copy()
+        self._dirty = np.asarray(state["dirty"], bool).copy()
+        self._has_host = np.asarray(state["has_host"], bool).copy()
+        self.host.load_state(state["host"])
+        meta = state["meta"]
+        self._clock = int(meta["clock"])
+        self._stamp = int(meta["stamp"])
+        self.stats = {k: ({p: dict(v) for p, v in val.items()}
+                          if k == "by_path" else val)
+                      for k, val in meta["stats"].items()}
+        if self._fx is not None:
+            self._csum_data = np.asarray(state["csum_data"],
+                                         np.int64).copy()
+            self._csum_stamp = np.asarray(state["csum_stamp"],
+                                          np.int64).copy()
 
     # -- reporting ---------------------------------------------------------
     def tier_speedup(self) -> float:

@@ -16,7 +16,6 @@ the CPU (see ``core.policies``).
 from __future__ import annotations
 
 import dataclasses
-import itertools
 
 import numpy as np
 import torch
@@ -39,8 +38,33 @@ S_EMPTY, S_PREFILL, S_DECODE, S_DONE = 0, 1, 2, 3
 STATE_OF_CODE = {S_PREFILL: PREFILL, S_DECODE: DECODE, S_DONE: DONE}
 
 
-#: process-wide rid source; dispatch tie-breaks on rid (submit order)
-_rid = itertools.count()
+class _RidCounter:
+    """Process-wide rid source. Same contract as ``itertools.count()``
+    (``next`` yields 0, 1, 2, ...) plus a peek/seek surface so a snapshot
+    can record the watermark and a restored process can resume rid
+    assignment where the crashed one left off: dispatch tie-breaks on
+    rid, so bit-exact resume needs bit-exact rids."""
+
+    def __init__(self, start: int = 0):
+        self._next = int(start)
+
+    def __next__(self) -> int:
+        n, self._next = self._next, self._next + 1
+        return n
+
+    def __iter__(self):
+        return self
+
+    def peek(self) -> int:
+        return self._next
+
+    def seek(self, value: int) -> None:
+        """Move the watermark forward (never backward: rids must stay
+        unique within a process even across restores)."""
+        self._next = max(self._next, int(value))
+
+
+_rid = _RidCounter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,6 +329,26 @@ class RequestQueue:
                 self._reset_slot_state([i])
                 return True
         return False
+
+    # -- snapshot/restore --------------------------------------------------
+    def snapshot_state(self) -> tuple[list[np.ndarray], float]:
+        """Host copies of the policy state's leaves plus the utilization
+        the next ``dispatch`` will observe. The waiting Requests are
+        serialized by the snapshot layer, which records each one's
+        waiting-room slot: per-slot policy state is indexed by it, so
+        occupancy must round-trip positionally."""
+        return policies_lib.policy_state_leaves(self._state), \
+            self._prev_util
+
+    def load_state(self, leaves, prev_util: float,
+                   slots: dict[int, Request]) -> None:
+        """Inverse of ``snapshot_state``: rebuild the policy state from a
+        fresh-init template and re-seat waiting requests at their
+        recorded waiting-room slots."""
+        template = self.policy.init(self.params, self.capacity)
+        self._state = policies_lib.rebuild_policy_state(template, leaves)
+        self._prev_util = float(prev_util)
+        self._slots = [slots.get(i) for i in range(self.capacity)]
 
     def _reset_slot_state(self, idx: list[int]) -> None:
         """Reinitialize per-slot policy state for vacated waiting slots —

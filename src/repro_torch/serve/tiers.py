@@ -44,8 +44,9 @@ global host-slot namespace this class owns (channel c's slots occupy
 
 Port of ``repro/serve/tiers.py``, with its trace hooks (``attach_trace``:
 per-channel busy intervals of billing, migrations and evacuations on a
-``serve.trace.Tracer``'s modelled clock). Snapshot/restore
-(``snapshot_state`` / ``load_state``) waits for the port's snapshot layer.
+``serve.trace.Tracer``'s modelled clock) and its snapshot round-trip
+(``snapshot_state`` / ``load_state``: placement, free lists and billing
+totals, for ``serve.snapshot``).
 """
 
 from __future__ import annotations
@@ -697,6 +698,56 @@ class TieredHostPool:
         return (np.asarray(moved_b, np.int32),
                 np.asarray(moved_src, np.int32),
                 np.asarray(moved_dst, np.int32), casualties)
+
+    # -- snapshot/restore ----------------------------------------------------
+    def snapshot_state(self) -> dict:
+        """Every mutable field, as checkpoint-ready values: placement
+        arrays are copied host arrays; the per-channel free stacks,
+        accounting totals and migration counters go as JSON-able
+        structures. Free-stack order is serialized verbatim — ``place``
+        pops from the tail, so a reordered stack would place future
+        blocks on other slots and break bit-exact resume."""
+        return {
+            "slot_of": self.slot_of.copy(),
+            "block_of": self.block_of.copy(),
+            "pref": self.pref.copy(),
+            "wrr": self._wrr.copy(),
+            "win": self._win.copy(),
+            "offline": self.offline.copy(),
+            "quarantined": self._quarantined.copy(),
+            "lost": self._lost.copy(),
+            "meta": {
+                "free": [list(f) for f in self._free],
+                "totals": [dict(t) for t in self.totals],
+                "migrations": self.migrations,
+                "migrate_us": self.migrate_us,
+            },
+        }
+
+    def load_state(self, state: dict) -> None:
+        """Inverse of ``snapshot_state`` onto a pool built from the same
+        channel spec (the static layout — capacities, bases, kinds —
+        comes from the config, not the snapshot)."""
+        meta = state["meta"]
+        free = meta["free"]
+        if len(free) != len(self.channels):
+            raise ValueError(
+                f"tier snapshot has {len(free)} channels, pool has "
+                f"{len(self.channels)} — restore needs the same tier "
+                "spec the snapshot was taken under")
+        self.slot_of = np.asarray(state["slot_of"], np.int32).copy()
+        self.block_of = np.asarray(state["block_of"], np.int32).copy()
+        self.pref = np.asarray(state["pref"], np.int8).copy()
+        self._wrr = np.asarray(state["wrr"], np.float64).copy()
+        self._win = np.asarray(state["win"], np.float64).copy()
+        self.offline = np.asarray(state["offline"], bool).copy()
+        self._quarantined = np.asarray(state["quarantined"],
+                                       np.int64).copy()
+        self._lost = np.asarray(state["lost"], np.int64).copy()
+        self._free = [[int(s) for s in f] for f in free]
+        self.totals = [dict(t) for t in meta["totals"]]
+        self.migrations = int(meta["migrations"])
+        self.migrate_us = float(meta["migrate_us"])
 
     # -- reporting / invariants ----------------------------------------------
     def reset_stats(self) -> None:

@@ -4,9 +4,9 @@ Port of ``repro/serve/trace.py``: plain Python, no device work. On a CUDA
 device the engine's ``dispatch`` span covers the enqueue of its step
 graphs' replays, not their execution on the card; no hook reads a device
 tensor, and a traced engine replays the same graphs as an untraced one.
-The ``snapshot_cut`` / ``restore`` phases and the ICI tracks are named
-here but not emitted yet: the port has no snapshot layer or sharded
-engine.
+The ``snapshot_cut`` / ``restore`` spans cover a cut's drain, flush and
+write, and a restore's load and journal scan. The ICI tracks are named
+here but not emitted: the port has no sharded engine.
 
 The serving stack's observability layer (README "Observability"). One
 ``Tracer`` per engine, ``None`` when disabled — every hot-path hook in

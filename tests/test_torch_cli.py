@@ -1,9 +1,13 @@
 """The port's serve CLI against the reference CLI: under each of the six
-admission policies, and under the tiered host pool and fault plans
-(``--tiers``, ``--no-tier-migrate``, ``--faults``, with tenants too),
+admission policies, for the other dense configs (``--arch``), under the
+tiered host pool and fault plans
+(``--tiers``, ``--no-tier-migrate``, ``--faults``, with tenants too), and
+across a crash and its restore (``--faults crash:@S --snapshot-dir
+--snapshot-every``, exit 3, then ``--restore``),
 both ``main()``s run in-process on the SMOKE config (``--device cpu``
 for the port) and print the same JSON report, field for field; the
-parse-time errors of ``--tiers`` and ``--faults`` read the same; under
+parse-time errors of ``--tiers``, ``--faults`` and the snapshot flags
+read the same; under
 ``--trace`` both report the same trace summary (bar the path and the
 host-clock span times) and export a Perfetto file. Left
 out of the comparison: the wall clock (``wall_s``, ``tok_s``) and the
@@ -137,3 +141,81 @@ def test_cli_trace_equals_reference(flags, monkeypatch, tmp_path):
     for key in set(want) - UNCOMPARED - {"failed_requests"}:
         assert got[key] == want[key], key
     assert got["trace"]["duplex_util"] and got["trace"]["events"] > 0
+
+
+def _run(main, argv, monkeypatch) -> tuple[int, dict]:
+    """main()'s exit code and the JSON of its last line."""
+    monkeypatch.setattr(sys, "argv", argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = main()
+    return code, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--no-warmup"],
+    ["--tiers", "ddr5:2,cxl:2", "--megastep", "4"]])
+def test_cli_crash_then_restore_equals_reference(flags, monkeypatch,
+                                                 tmp_path):
+    """``--faults crash:@S --snapshot-dir D --snapshot-every 2``: both
+    CLIs exit 3 with the same crash report (a resumable snapshot, the
+    same newest cut and journal length); the same flags with
+    ``--restore`` then print the same report field for field, its
+    ``restore`` section included (the warmup of the second case must
+    not crash: its injector is disarmed)."""
+    runs = []
+    for main, side in ((jserve.main, []), (tserve.main, ["--device", "cpu"])):
+        d = str(tmp_path / f"snap{len(runs)}")
+        argv = ["serve", "--requests", "4", "--gen", "12", "--faults",
+                "crash:@10", "--snapshot-dir", d, "--snapshot-every", "2",
+                *flags, *side]
+        code, crash = _run(main, argv, monkeypatch)
+        assert code == 3
+        assert crash["snapshot"].pop("dir") == d
+        code, restored = _run(main, argv + ["--restore"], monkeypatch)
+        assert code == 0
+        runs.append((crash, restored))
+    (jcrash, want), (tcrash, got) = runs
+    assert tcrash == jcrash
+    assert tcrash["error"]["type"] == "CrashFault"
+    assert tcrash["snapshot"]["resumable"]
+    assert set(got) - UNCOMPARED == set(want) - UNCOMPARED
+    for key in set(want) - UNCOMPARED:
+        assert got[key] == want[key], key
+    assert got["restore"]["restored_step"] == \
+        tcrash["snapshot"]["newest_valid"]
+    assert got["generated_tokens"] == 48
+
+
+@pytest.mark.parametrize("argv", [
+    ["--snapshot-every", "2"],
+    ["--snapshot-every", "2", "--snapshot-dir", "D", "--no-paging"],
+    ["--restore"],
+    ["--tenants", "redis", "--snapshot-every", "2", "--snapshot-dir", "D"],
+])
+def test_cli_snapshot_errors_equal_reference(argv, monkeypatch, capsys):
+    errs = []
+    for main, extra in ((jserve.main, []), (tserve.main, ["--device", "cpu"])):
+        monkeypatch.setattr(sys, "argv", ["serve", *argv, *extra])
+        with pytest.raises(SystemExit) as e:
+            main()
+        assert e.value.code == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errs[1] == errs[0]
+    assert "snapshot" in errs[1] or "--restore" in errs[1]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2.5-14b",
+                                  "stablelm-3b"])
+def test_cli_dense_configs_equal_reference(arch, monkeypatch):
+    """``--arch`` for the three other dense configs (SMOKE): the same
+    report field for field — counts, paging stats, ``duplex_speedup``."""
+    argv = ["serve", "--arch", arch, "--requests", "4", "--gen", "6",
+            "--no-warmup"]
+    want = _report(jserve.main, argv, monkeypatch)
+    got = _report(tserve.main, argv + ["--device", "cpu"], monkeypatch)
+    assert set(got) - UNCOMPARED == set(want) - UNCOMPARED
+    for key in set(want) - UNCOMPARED:
+        assert got[key] == want[key], key
+    assert got["arch"] == arch and got["generated_tokens"] == 24
+    assert got["paging"]["paged"] and got["paging"]["page_outs"] > 0

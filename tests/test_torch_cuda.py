@@ -3,9 +3,10 @@ their plain versions, the serving engine token-exact on the GPU, with
 and without tenants, its CUDA graphs of the engine steps against the
 eager megastep (smollm-135m paged, the tenant mix, rwkv6-7b), the
 forward through the flash-attention kernel, the RWKV6 forward
-through the wkv6 kernel, a traced engine against an untraced one, and
-the stream simulator on the card against the CPU and its step graphs
-against its eager steps.
+through the wkv6 kernel, a traced engine against an untraced one, the
+stream simulator on the card against the CPU and its step graphs
+against its eager steps, and a crashed graphed engine restored from its
+snapshots against its uncrashed twin.
 They skip where there is no CUDA device; on a machine with one, run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -644,3 +645,105 @@ def test_simulator_on_the_card(cuda, case, policy):
         assert got[key] == pytest.approx(want[key], rel=rtol, abs=1e-9), key
     if not lockstep:
         assert torch.equal(graphed.weights.cpu(), cpu.weights)
+
+
+# ---------------------------------------------------------------------------
+# crash-consistent snapshots and restore on the card
+# ---------------------------------------------------------------------------
+
+def _snap_engine(api, params, d, plan, graphs=True):
+    from repro_torch.core import faults as faults_lib
+    from repro_torch.serve import EngineConfig, ServeEngine
+    fx = faults_lib.FaultInjector(
+        faults_lib.parse_fault_plan(plan) if plan else [])
+    return ServeEngine(api, params, EngineConfig(
+        max_batch=3, cache_len=64, block_tokens=4, hbm_blocks=6,
+        prefill_chunk=3, max_queue=8, megastep=4, pipeline_depth=2,
+        faults=fx, snapshot_every=2, snapshot_dir=str(d), device="cuda"),
+        _graphs=None if graphs else False)
+
+
+def _snap_signature(eng):
+    done = sorted(eng.completed)
+    ps = eng.paging_stats()
+    return ([eng.completed[r].generated for r in done],
+            [(eng.completed[r].admitted_step, eng.completed[r].done_step)
+             for r in done],
+            {k: ps[k] for k in ("duplex_us", "serial_us", "page_ins",
+                                "page_outs", "kernel_calls", "by_path")},
+            dict(eng.stats()["faults"]))
+
+
+def test_crash_restore_on_the_card(cuda, tmp_path):
+    """SMOKE smollm-135m on the step graphs with a cut every 2 megasteps:
+    a run killed by ``crash:@9`` at depth 2 (a megastep in flight) and
+    restored into a fresh graphed engine gives the uncrashed run's
+    tokens, timing, billing and fault stats; the cuts launch the CUDA
+    ``quant_stream`` for their flushes; the restore writes the static
+    tensors in place; the pool's final bytes equal the uncrashed run's;
+    and outside the snapshot module, the checkpoint writer and the pool's
+    state copies the host never syncs."""
+    import inspect
+
+    from repro_torch.checkpoint import sharded
+    from repro_torch.core.faults import CrashFault
+    from repro_torch.models import registry
+    from repro_torch.serve import kv_pool, snapshot
+    api = registry.build("smollm-135m", smoke=True, device="cuda")
+    params = api.init(torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(77).integers(
+        0, api.cfg.vocab, (4, 6)).astype(np.int32)
+
+    def submit(eng):
+        for i in range(4):
+            eng.submit(prompts[i], 10, arrival_step=2 * i)
+
+    def allowed(site):
+        name, _, line = site.split(" < ")[0].partition(":")
+        spans = {"snapshot.py": [snapshot], "sharded.py": [sharded],
+                 "kv_pool.py": [kv_pool.PagedKVPool.snapshot_state,
+                                kv_pool.PagedKVPool.load_state]}
+        for obj in spans.get(name, []):
+            src, first = inspect.getsourcelines(obj)
+            if first <= int(line) < first + len(src):
+                return True
+        return False
+
+    ref = _snap_engine(api, params, tmp_path / "ref", None)
+    submit(ref)
+    ds.reset_launches()
+    with sync_watch() as syncs:
+        ref.run(max_steps=600)
+    assert all(allowed(s) for s in syncs), dict(syncs)
+    assert ds.LAUNCHES["quant_stream"] >= 1
+    assert ref.stats()["snapshot"]["snapshots_taken"] > 0
+    want = _snap_signature(ref)
+    final = [t.clone() for t in (ref.pool.hbm, ref.pool.host_q,
+                                 ref.pool.host_scale)]
+
+    dead = _snap_engine(api, params, tmp_path / "crash", "crash:@9")
+    submit(dead)
+    with pytest.raises(CrashFault):
+        dead.run(max_steps=600)
+    torch.cuda.synchronize()
+    del dead
+
+    eng = _snap_engine(api, params, tmp_path / "crash", "crash:@9")
+    static = [*eng._dev.values(), *eng.cache.values(), eng.pool.hbm,
+              eng.pool.host_q, eng.pool.host_scale]
+    with sync_watch() as syncs:
+        info = eng.restore()
+        eng.run(max_steps=600)
+    torch.cuda.synchronize()
+    assert info["restored_step"] > 0
+    assert all(allowed(s) for s in syncs), dict(syncs)
+    assert _snap_signature(eng) == want
+    assert all(a is b for a, b in zip(static, [
+        *eng._dev.values(), *eng.cache.values(), eng.pool.hbm,
+        eng.pool.host_q, eng.pool.host_scale]))
+    for a, b in zip((eng.pool.hbm, eng.pool.host_q, eng.pool.host_scale),
+                    final):
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b)
+    eng.pool.check_invariants()

@@ -41,11 +41,14 @@ def test_importing_the_port_pulls_in_no_jax():
     mods, bad = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(mods) >= 15
     assert bad == []
-    # the tiered host pool, the fault layer, the simulator and the tracing
-    # plane are among the scanned
+    # the tiered host pool, the fault layer, the simulator, the tracing
+    # plane and the snapshot layer with its checkpoint writer are among
+    # the scanned
     for m in ("repro_torch.core.prng", "repro_torch.core.faults",
               "repro_torch.serve.tiers", "repro_torch.core.scheduler",
-              "repro_torch.core.metrics", "repro_torch.serve.trace"):
+              "repro_torch.core.metrics", "repro_torch.serve.trace",
+              "repro_torch.serve.snapshot",
+              "repro_torch.checkpoint.sharded"):
         assert m in mods
 
 
