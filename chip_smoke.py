@@ -12,9 +12,9 @@ prefill shape), records beside the short kernels the
 device time of an empty kernel launched at the same geometry (the launch
 floor), and drives two serving paths at full
 width (smollm-135m: 30 layers, d_model 576, vocab 49152; random seeded
-weights), the full-sequence forward of six models and the serving of
-rwkv6-7b, each with the launch counters set to 0 just before it and
-read just after:
+weights), the full-sequence forward of eight models and the serving of
+rwkv6-7b, zamba2-7b and whisper-base, each with the launch counters set
+to 0 just before it and read just after:
 
   * the main path: LLM decode through the duplex-paged KV pool, the
     engine replaying CUDA graphs of its steps, every request token for
@@ -76,7 +76,18 @@ read just after:
   * the RWKV serving path: rwkv6-7b FULL through ``ServeEngine`` with
     paging gated off by its recurrent cache, on the step graphs, every
     request token for token against ``reference_decode``, then with the
-    eager megastep, which must serve the same;
+    eager megastep, which must serve the same (``serve_unpaged``: no
+    kernel may launch);
+  * the Zamba2 paths: zamba2-7b FULL (81 Mamba2 layers, d_model 3584, a
+    shared attention block applied 13 times; 13.5 GB of weights drawn on
+    the card) served as the RWKV path is at a batch of 8, its nested
+    cache (Mamba state kept per row, attention rings written in place) on
+    the step graphs; then one forward at B=1, S=512 (cut from its 4096
+    context: the SSD scan is a Python loop), whose first 32 positions
+    must equal 32 ``decode_step``s in f32 against a control fault;
+  * the Whisper path: whisper-base FULL served the same way (self rings
+    in place, cross K/V zeros as the reference serves them), then one
+    forward at B=2 over 1500 stub frames and 448 decoder tokens;
   * the snapshot path: the main path's run with a crash-consistent cut
     every ``SNAP_EVERY`` megasteps (its flushes through ``quant_stream``),
     then the same run killed by ``crash:@S`` halfway through and restored
@@ -370,6 +381,24 @@ RWKV_RESET = 128
 RWKV_SERVE = dict(max_batch=4, cache_len=64, megastep=8, pipeline_depth=2,
                   prefill_chunk=4)
 RWKV_REQUESTS, RWKV_PROMPT, RWKV_GEN = 8, 32, 16
+# the nested-cache serving paths (zamba2-7b, whisper-base FULL): the RWKV
+# path's requests and engine settings at a batch of 8
+NESTED_SERVE = dict(RWKV_SERVE, max_batch=8)
+# zamba2-7b's forward at (batch, sequence): cut to 512 of its 4096 context
+# tokens, since the SSD scan is a Python loop over time (81 layers x 512
+# steps of ~10 operations: ~0.4 M launches a forward)
+ZAMBA_FORWARD = (1, 512)
+# the forward's first positions held against as many decode_steps, with
+# the weights in f32 (TF32 off), within the CPU test's f32 tolerance of
+# decode against the forward (tests/test_torch_hybrid.py: atol = rtol =
+# 1e-4). On an H100 the f32 gap was 6.1e-5 and the bf16 one 0.258 (PERF.md,
+# PR 21): bf16 rounding through 81 random-weight layers, past the CPU
+# test's bf16 1e-2, so bf16 is recorded, not gated.
+ZAMBA_DECODE_CHECK = 32
+ZAMBA_F32_TOL = 1e-4
+# whisper-base's forward: (batch, stub frames, decoder tokens); 1500 and
+# 448 are Whisper's published n_audio_ctx and n_text_ctx, so no cut
+WHISPER_FORWARD = (2, 1500, 448)
 # kernel instances whose -Xptxas -v report must show no spills: the
 # tensor-core flash body at every head dim, wkv6 at the path's hs, and the
 # stream kernels' 16-byte path (<1>), held to 64 registers by their launch
@@ -414,6 +443,9 @@ extern "C" int empty_launch(int blocks, int threads, int cluster, int smem,
 # spin kernels that open each profiler window, and how many profiles
 # device_events takes before it gives up
 PROFILE_LEAD = 32
+# clock cycles of each spin kernel queued after a window's sync (~6 µs):
+# 32 of them outlast the 52 short operations a window has lost there
+LEAD_CYCLES = 10_000
 PROFILE_TRIES = 5
 
 
@@ -462,10 +494,14 @@ def _profile(fn, iters: int,
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         # late in a process the profiler has been seen to lose the first
         # few device operations of a window (PERF.md): open it with spin
-        # kernels, which the counts leave out
+        # kernels, which the counts leave out, before the sync and after
+        # it (the first 1-52 operations queued after the sync were lost
+        # in four runs, PR 21; a held window starts with its hold spin)
         for _ in range(PROFILE_LEAD):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(LEAD_CYCLES)
         if held:
             torch.cuda._sleep(HOLD_CYCLES)
             start.record()
@@ -1360,48 +1396,71 @@ def rwkv_f32_logits(params, cfg, tokens) -> dict:
             "f32_control_logits_max_abs_diff": control}
 
 
-def rwkv_serve_phase(api, params) -> dict:
-    """The RWKV serving path: rwkv6-7b FULL through ``ServeEngine`` with
-    paging gated off by the recurrent cache kind, replaying the engine's
-    step graphs, every request token for token against
-    ``reference_decode`` in batches of the engine's max_batch; then once
-    more with the eager megastep, which must serve the same. Decode runs
-    the one-step recurrence, not the kernel: its wkv6 launches must be 0.
-    Also profiles one ``decode_step`` at the engine's batch (device ms
-    and operations)."""
+def all_launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    from repro_torch.kernels import duplex_stream as ds
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.kernels import vector_distance as vd
+    return {**ds.LAUNCHES, **vd.LAUNCHES, **fa.LAUNCHES, **rs.LAUNCHES}
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels import duplex_stream as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.kernels import vector_distance as vd
+    for mod in (ds, vd, fa, rs):
+        mod.reset_launches()
+
+
+def serve_unpaged(path: str, api, params, settings: dict) -> dict:
+    """An unpaged serving path at full width: ``api``'s model through
+    ``ServeEngine`` with paging gated off by its cache family, replaying
+    the engine's step graphs, every request token for token against
+    ``reference_decode`` in batches of the engine's max_batch; then once
+    more with the eager megastep, which must serve the same tokens and
+    stats. No kernel may launch in the run (the recurrences run their
+    one-step form and attention its plain decode). Also reads the peak
+    device memory of the run. Returns the phase's numbers and one
+    ``decode_step`` call at the engine's batch on a fresh cache, for the
+    caller to profile."""
     from repro_torch.serve import EngineConfig, ServeEngine
 
+    arch = api.arch_id
     prompts = np.random.default_rng(6).integers(
         0, api.cfg.vocab, (RWKV_REQUESTS, RWKV_PROMPT)).astype(np.int32)
-    engine_cfg = EngineConfig(**RWKV_SERVE, max_queue=RWKV_REQUESTS + 8,
+    engine_cfg = EngineConfig(**settings, max_queue=RWKV_REQUESTS + 8,
                               device="cuda")
     warm = ServeEngine(api, params, engine_cfg)
-    for i in range(RWKV_SERVE["max_batch"]):
+    for i in range(settings["max_batch"]):
         warm.submit(prompts[i, :8], 4)
     warm.run()
+    del warm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(api, params, engine_cfg)
     if eng.paged or eng.pool is not None:
-        fail("rwkv6-7b: the engine paged a recurrent cache")
+        fail(f"{arch}: the engine paged a {api.cache_kind} cache")
     rids = [eng.submit(prompts[i], RWKV_GEN,
                        arrival_step=i * ARRIVAL_EVERY).rid
             for i in range(RWKV_REQUESTS)]
     torch.cuda.synchronize()
-    rs.reset_launches()
+    reset_all_launches()
     t0 = time.perf_counter()
     outs = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = rs.LAUNCHES["wkv6"]
+    launches = all_launches()
     check_decode(api, params, prompts, outs, rids, RWKV_GEN,
-                 RWKV_SERVE["max_batch"], RWKV_SERVE["cache_len"])
+                 settings["max_batch"], settings["cache_len"])
     ps = eng.paging_stats()
     if ps["paged"] is not False:
-        fail(f"rwkv6-7b: paging_stats says paged={ps['paged']}")
-    if launches:
-        fail(f"rwkv6-7b: decode launched wkv6 {launches} times (want 0)")
+        fail(f"{arch}: paging_stats says paged={ps['paged']}")
+    if any(launches.values()):
+        fail(f"{arch}: serving launched kernels {launches} (want none)")
     tokens = sum(len(outs[r]) for r in rids)
-    graphs = graph_lines("rwkv", eng)
+    graphs = graph_lines(path, eng)
     eager = ServeEngine(api, params, engine_cfg, _graphs=False)
     erids = [eager.submit(prompts[i], RWKV_GEN,
                           arrival_step=i * ARRIVAL_EVERY).rid
@@ -1413,30 +1472,246 @@ def rwkv_serve_phase(api, params) -> dict:
     ewall = time.perf_counter() - t0
     if any(not np.array_equal(eouts[a], outs[b])
            for a, b in zip(erids, rids)) or eager.stats() != eng.stats():
-        fail("rwkv6-7b: the eager megastep served otherwise")
-    # one decode_step at the engine's batch: device ms and operations
-    B = RWKV_SERVE["max_batch"]
-    cache = api.init_cache(B, RWKV_SERVE["cache_len"])
+        fail(f"{arch}: the eager megastep served otherwise")
+    peak = torch.cuda.max_memory_allocated()
+    eager_steps = eager.decode_steps
+    del eager
+    B = settings["max_batch"]
+    cache = api.init_cache(B, settings["cache_len"])
     toks = torch.zeros((B,), dtype=torch.int32, device="cuda")
-    dec_ms, dec_ops = device_profile(
-        lambda: api.decode_step(params, cache, toks, None), iters=5)
-    out = {"arch": "rwkv6-7b", "requests": RWKV_REQUESTS,
+    out = {"arch": arch, "requests": RWKV_REQUESTS,
            "prompt": RWKV_PROMPT, "gen": RWKV_GEN, "tokens": tokens,
-           "paged": ps["paged"], "wall_ms": wall * 1e3,
-           "tokens_per_s": tokens / wall, "wkv6_launches": launches,
+           "max_batch": B, "paged": ps["paged"], "wall_ms": wall * 1e3,
+           "tokens_per_s": tokens / wall, "launches": launches,
            "steps": ps["steps"], "host_dispatches": ps["host_dispatches"],
            "megasteps": ps["megasteps"], "host_blocked": ps["host_blocked"],
-           "decoder_ops_per_step": dec_ops, "decoder_ms_per_step": dec_ms,
            "decode_steps": eng.decode_steps,
            "wall_ms_per_decode_step": wall * 1e3 / eng.decode_steps,
-           **graphs, "eager": {
+           "peak_memory_bytes": peak, **graphs, "eager": {
                "wall_ms": ewall * 1e3, "tokens_per_s": tokens / ewall,
-               "wall_ms_per_decode_step": ewall * 1e3 / eager.decode_steps}}
-    print(f"served {RWKV_REQUESTS} requests of rwkv6-7b (full width) on "
+               "wall_ms_per_decode_step": ewall * 1e3 / eager_steps},
+           "card": gpu_line()}
+    print(f"served {RWKV_REQUESTS} requests of {arch} (full width) on "
           f"the card: {tokens} tokens in {wall:.3f} s "
           f"({tokens / wall:.1f} tok/s), all token-exact vs "
           f"reference_decode, paged={ps['paged']}", flush=True)
+    return out, lambda: api.decode_step(params, cache, toks, toks)
+
+
+def profile_once(fn) -> tuple[int, float]:
+    """One profile of one call of ``fn``, taken as it comes (late in the
+    process the profiler loses an event or a few of a window, PERF.md):
+    its device operations and device ms. Fails if it saw nothing."""
+    count, ns, _ = _profile(fn, iters=1)
+    if not count:
+        fail("the profiler saw no device operation of a profiled call")
+    return sum(count.values()), sum(ns.values()) / 1e6
+
+
+def step_profile(step) -> dict:
+    """One ``decode_step`` call profiled as it comes (``profile_once``),
+    after a warm-up call."""
+    step()
+    ops, ms = profile_once(step)
+    return {"decoder_ops_per_step": ops, "decoder_ms_per_step": ms}
+
+
+def rwkv_serve_phase(api, params) -> dict:
+    """The RWKV serving path: rwkv6-7b FULL through ``serve_unpaged``.
+    Decode runs the one-step recurrence, not the kernel: its wkv6
+    launches must be 0 (as every kernel's). One ``decode_step`` at the
+    engine's batch is profiled until two profiles see the same whole
+    calls (``device_profile``)."""
+    out, step = serve_unpaged("rwkv", api, params, RWKV_SERVE)
+    out["decoder_ms_per_step"], out["decoder_ops_per_step"] = \
+        device_profile(step, iters=5)
+    out["wkv6_launches"] = out["launches"]["wkv6"]
     print(json.dumps({"rwkv_serve_phase": out}), flush=True)
+    return out
+
+
+def model_on_card(arch: str, dims: tuple, fields: tuple):
+    """``arch``'s FULL config on the card, its weights drawn on the card
+    from a seed with a CUDA generator (drawing billions of values on the
+    host would take about a minute); fails unless the config's ``fields``
+    read ``dims``. Returns (api, params, init seconds)."""
+    from repro_torch.models import registry
+    api = registry.build(arch, smoke=False, device="cuda")
+    got = tuple(getattr(api.cfg, f) for f in fields)
+    if got != dims:
+        fail(f"{arch}: not the full-width config: {dict(zip(fields, got))}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return api, params, time.perf_counter() - t0
+
+
+def param_bytes(params) -> int:
+    from repro_torch.models import layers as nn
+    return sum(t.numel() * t.element_size() for t in nn.tree_leaves(params))
+
+
+def zamba2_serve_phase(api, params) -> dict:
+    """The Zamba2 serving path: zamba2-7b FULL through ``serve_unpaged``
+    at ``NESTED_SERVE``: its nested cache (the Mamba state of 81 layers
+    kept per row, the 13 shared-attention rings written in place) on the
+    step graphs, then eager; one ``decode_step`` profiled as it comes
+    (``step_profile``)."""
+    out, step = serve_unpaged("zamba2", api, params, NESTED_SERVE)
+    out.update(step_profile(step))
+    print(json.dumps({"zamba2_serve_phase": out}), flush=True)
+    return out
+
+
+def zamba2_decode_logits(api, params, tokens, n: int, reset_at=None):
+    """The logits of ``n`` ``decode_step``s over the first ``n`` tokens,
+    (B, n, V) in f32. ``reset_at``: the control fault, the Mamba state of
+    every layer zeroed before that step (a carry the decode lost)."""
+    B = tokens.shape[0]
+    cache = api.init_cache(B, tokens.shape[1])
+    steps = []
+    for t in range(n):
+        if t == reset_at:
+            cache["mamba"]["ssm"].zero_()
+        lg, cache = api.decode_step(
+            params, cache, tokens[:, t],
+            torch.full((B,), t, dtype=torch.int32, device="cuda"))
+        steps.append(lg.float())
+    return torch.stack(steps, dim=1)
+
+
+def zamba2_forward_phase(api, params, B: int, S: int) -> dict:
+    """One zamba2-7b FULL forward at (B, S) under ``inference_mode``: no
+    kernel launched, logits finite; one wall reading and one profile of
+    the forward taken as it comes. Then the forward against the stepwise
+    decode: ZAMBA_DECODE_CHECK ``decode_step``s of the same tokens against
+    the forward's first positions, the bf16 gap recorded, and the gate in
+    f32 (the weights cast to f32, TF32 off): within ZAMBA_F32_TOL, atol =
+    rtol, the CPU test's f32 tolerance; the control (the Mamba state
+    zeroed halfway) must exceed it. In bf16 the two differ by rounding
+    alone beyond the CPU test's 1e-2 (PERF.md, PR 21)."""
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, api.cfg.vocab, (B, S))).cuda()
+    batch = {"tokens": tokens}
+    n = ZAMBA_DECODE_CHECK
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        logits = api.forward(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        if any(launches.values()):
+            fail(f"zamba2-7b: the forward launched kernels {launches}")
+        if logits.shape != (B, S, api.cfg.vocab) or \
+                not torch.isfinite(logits).all():
+            fail(f"zamba2-7b: forward logits {tuple(logits.shape)} not "
+                 f"finite")
+        ops, device_ms = profile_once(lambda: api.forward(params, batch))
+        t0 = time.perf_counter()
+        dec = zamba2_decode_logits(api, params, tokens, n)
+        torch.cuda.synchronize()
+        dec_wall = time.perf_counter() - t0
+        bf16_gap = (dec - logits[:, :n].float()).abs().max().item()
+        del dec, logits
+        torch.cuda.empty_cache()
+        # the gate, in f32
+        from repro_torch.models import layers as nn
+        from repro_torch.models import registry
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            api32 = registry._hybrid_api(
+                api.arch_id, dataclasses.replace(api.cfg,
+                                                 dtype=torch.float32),
+                api.device)
+            p32 = nn.tree_map(lambda t: t.float(), params)
+            want = api32.forward(p32, batch)[:, :n].float()
+            gap = (zamba2_decode_logits(api32, p32, tokens, n)
+                   - want).abs()
+            control = (zamba2_decode_logits(api32, p32, tokens, n,
+                                            reset_at=n // 2)
+                       - want).abs()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        bound = ZAMBA_F32_TOL * (1 + want.abs())
+        passed = bool((gap <= bound).all())
+        caught = bool((control > bound).any())
+        f32_max, control_max = gap.max().item(), control.max().item()
+        del p32, want, gap, control, bound
+    torch.cuda.empty_cache()
+    out = {"arch": "zamba2-7b", "batch": B, "seq": S,
+           "layers": api.cfg.num_layers,
+           "attn_apps": api.cfg.num_attn_apps, "launches": launches,
+           "forward_ms": wall * 1e3, "forward_device_ms": device_ms,
+           "device_ops": ops, "tokens_per_s": B * S / wall,
+           "decode_check_positions": n,
+           "decode_check_wall_ms": dec_wall * 1e3,
+           "bf16_decode_vs_forward_max_abs_diff": bf16_gap,
+           "f32_decode_vs_forward_max_abs_diff": f32_max,
+           "f32_tol": ZAMBA_F32_TOL,
+           "control_fault": f"Mamba state zeroed at step {n // 2}",
+           "f32_control_max_abs_diff": control_max, "card": gpu_line()}
+    print(json.dumps({"zamba2_forward_phase": out}), flush=True)
+    if not passed:
+        fail(f"zamba2-7b: {n} f32 decode steps differ from the f32 "
+             f"forward's first positions by up to {f32_max} (limit "
+             f"{ZAMBA_F32_TOL} absolute plus relative)")
+    if not caught:
+        fail(f"zamba2-7b: the control ({out['control_fault']}) moved the "
+             f"f32 logits by {control_max}, within the limit: the check "
+             f"cannot see it")
+    return out
+
+
+def whisper_phase(B: int, S_enc: int, S_dec: int) -> dict:
+    """whisper-base FULL on the card: served through ``serve_unpaged``
+    (its self rings written in place, the cross K/V zeros, as the
+    reference serves it), then one forward at (B, S_enc stub frames,
+    S_dec decoder tokens) under ``inference_mode``: no kernel launched,
+    logits finite, one wall reading and one profile taken as it comes.
+    The model is freed before returning."""
+    api, params, init_s = model_on_card(
+        "whisper-base", (6, 512, 8, 8, 2048, 51865),
+        ("num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
+         "vocab"))
+    served, step = serve_unpaged("whisper", api, params, NESTED_SERVE)
+    served.update(step_profile(step))
+    gen = torch.Generator("cuda").manual_seed(8)
+    batch = {"frames": torch.randn((B, S_enc, api.cfg.d_model),
+                                   generator=gen, device="cuda"),
+             "tokens": torch.from_numpy(np.random.default_rng(9).integers(
+                 0, api.cfg.vocab, (B, S_dec))).cuda()}
+    with torch.inference_mode():
+        api.forward(params, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        logits = api.forward(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        peak = torch.cuda.max_memory_allocated()
+        if any(launches.values()):
+            fail(f"whisper-base: the forward launched kernels {launches}")
+        if logits.shape != (B, S_dec, api.cfg.vocab) or \
+                not torch.isfinite(logits).all():
+            fail(f"whisper-base: forward logits {tuple(logits.shape)} not "
+                 f"finite")
+        ops, device_ms = profile_once(lambda: api.forward(params, batch))
+        del logits
+    out = {"serve": served, "forward": {
+        "batch": B, "frames": S_enc, "tokens": S_dec, "launches": launches,
+        "forward_ms": wall * 1e3, "forward_device_ms": device_ms,
+        "device_ops": ops, "peak_memory_bytes": peak},
+        "param_bytes": param_bytes(params), "init_s": init_s,
+        "card": gpu_line()}
+    del params, batch
+    torch.cuda.empty_cache()
+    print(json.dumps({"whisper_phase": out}), flush=True)
     return out
 
 
@@ -2852,6 +3127,28 @@ def card_main(cpu: tuple) -> int:
     mark("kernel_rows")
     profile_serving(api, params, main_run, walls)
     mark("serving_profile")
+    # the nested-cache families after the profiles that need whole calls
+    # (device_profile), and zamba2-7b's forward, whose trace of ~0.46 M
+    # events is the largest, last of all profiles: after it the main
+    # path's decode-step profile lost 5 of 14,460 events in four of five
+    # windows (PERF.md, PR 21). These phases take their profiles as they
+    # come. All before the snapshot phase, which the profiler has lost
+    # events after.
+    zapi, zparams, zinit = model_on_card(
+        "zamba2-7b", (81, 3584, 32, 32, 14336, 32000, 64, 6),
+        ("num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
+         "vocab", "ssm_state", "attn_every"))
+    print(json.dumps({"zamba2_model": {
+        "param_bytes": param_bytes(zparams), "init_s": zinit,
+        "card": gpu_line()}}), flush=True)
+    zamba2_serve_phase(zapi, zparams)
+    mark("zamba2_serve")
+    whisper_phase(*WHISPER_FORWARD)
+    mark("whisper")
+    zamba2_forward_phase(zapi, zparams, *ZAMBA_FORWARD)
+    mark("zamba2_forward")
+    del zapi, zparams
+    torch.cuda.empty_cache()
     # after every profile: with it earlier in the process, the profiler
     # lost device events of rwkv6-7b's decode-step profiles (PERF.md)
     snap_shapes: dict = {}

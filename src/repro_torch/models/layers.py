@@ -1,6 +1,7 @@
 """Layers of the port (the subset of ``repro/models/layers.py`` that the
-dense decoder and RWKV6 use: norms, RoPE, attention for the full
-sequence and for one decode token, SwiGLU, cross-entropy).
+dense decoder, RWKV6, Zamba2 and the Whisper encoder-decoder use: norms,
+RoPE, attention for the full sequence and for one decode token, SwiGLU,
+the GELU MLP, cross-entropy).
 
 Conventions follow the reference: params are nested dicts of tensors,
 layer stacks carry a leading L axis, activations and params default to
@@ -63,6 +64,18 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree):
+    """The leaves of a nested dict of tensors, keys in sorted order at
+    every level (the order of the reference's ``jax.tree.leaves``), so two
+    trees of one structure yield matching leaves whatever order their
+    dicts were built in."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
+    else:
+        yield tree
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -123,6 +136,22 @@ class AttnSpec:
     qkv_bias: bool = False
     q_block: int = 512               # chunking for the online-softmax path
     rope_theta: float = 10000.0
+
+
+def attn_init(gen: torch.Generator, lead: tuple, d_model: int,
+              spec: AttnSpec, dtype=DEFAULT_DTYPE) -> dict:
+    """Attention projections N(0, 1/fan_in), biases (``spec.qkv_bias``)
+    zero, as the reference's ``attn_init``."""
+    qd = spec.num_heads * spec.head_dim
+    kvd = spec.num_kv_heads * spec.head_dim
+    p = {"wq": dense_init(gen, lead, d_model, qd, dtype),
+         "wk": dense_init(gen, lead, d_model, kvd, dtype),
+         "wv": dense_init(gen, lead, d_model, kvd, dtype),
+         "wo": dense_init(gen, lead, qd, d_model, dtype)}
+    if spec.qkv_bias:
+        for name, n in (("bq", qd), ("bk", kvd), ("bv", kvd)):
+            p[name] = torch.zeros((*lead, n), dtype=dtype)
+    return p
 
 
 def _mask_bias(q_pos, kv_pos, spec: AttnSpec) -> torch.Tensor:
@@ -253,10 +282,33 @@ def attn_cache_init(lead: tuple, batch: int, width: int, spec: AttnSpec,
 # MLP
 # ---------------------------------------------------------------------------
 
+def swiglu_init(gen: torch.Generator, lead: tuple, d_model: int, d_ff: int,
+                dtype=DEFAULT_DTYPE) -> dict:
+    return {"w_gate": dense_init(gen, lead, d_model, d_ff, dtype),
+            "w_up": dense_init(gen, lead, d_model, d_ff, dtype),
+            "w_down": dense_init(gen, lead, d_ff, d_model, dtype)}
+
+
 def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     g = F.silu((x @ params["w_gate"]).float())
     u = (x @ params["w_up"]).float()
     return (g * u).to(x.dtype) @ params["w_down"]
+
+
+def gelu_mlp_init(gen: torch.Generator, lead: tuple, d_model: int,
+                  d_ff: int, dtype=DEFAULT_DTYPE) -> dict:
+    return {"w_in": dense_init(gen, lead, d_model, d_ff, dtype),
+            "b_in": torch.zeros((*lead, d_ff), dtype=dtype),
+            "w_out": dense_init(gen, lead, d_ff, d_model, dtype),
+            "b_out": torch.zeros((*lead, d_model), dtype=dtype)}
+
+
+def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation, so the port
+    asks for it (``F.gelu``'s default is the exact erf form)."""
+    h = F.gelu((x @ params["w_in"] + params["b_in"]).float(),
+               approximate="tanh")
+    return h.to(x.dtype) @ params["w_out"] + params["b_out"]
 
 
 # ---------------------------------------------------------------------------

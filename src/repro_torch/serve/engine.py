@@ -47,16 +47,21 @@ never asks the device.
 
 Where the reference jits and donates, the port updates in place: the
 dense cache is written by ``decode_step`` in place, a recurrent cache
-(RWKV6) gets the moving rows of ``decode_step``'s new leaves written into
-it in place (the reference's frozen-row keep), admission and slot
-recycling rewrite the slot state and cache rows in place, and the pool
+(RWKV6, Zamba2's Mamba state) gets the moving rows of ``decode_step``'s
+new leaves written into it in place (the reference's frozen-row keep),
+admission and slot recycling rewrite the slot state and cache rows in
+place, and the pool
 commits into its tier tensors in place. On a CUDA device the engine
 steps are CUDA graphs over those static tensors (``serve/graphs.py``, the
 counterpart of the reference's jitted program): a megastep is one replay
 per inner step, and the paging transactions, tenant compute, policy
 feedback and host planning run eagerly between replays. On the CPU the
-megastep runs ``_megastep_math`` eagerly. A recurrent cache has no
-token-indexed K/V, so paging is gated off for it, as in the reference.
+megastep runs ``_megastep_math`` eagerly. A cache may be a nested dict
+(Zamba2's ``{"mamba": ..., "attn": ...}``, Whisper's ``{"self": ...,
+"cross_k", "cross_v"}``): the keep and the slot recycling walk its leaves
+(``layers.tree_leaves``), each with the batch on dim 1. Only the dense
+family's flat K/V cache pages; for every other cache paging is gated off,
+as in the reference.
 
 ``pipeline_depth = 2`` splits each megastep into plan / dispatch /
 reconcile and keeps one dispatched megastep's readback deferred while the
@@ -83,6 +88,7 @@ from repro_torch.core.hints import HintTree, default_serving_hints
 from repro_torch.core.metrics import MetricsRegistry
 from repro_torch.core.telemetry import CaxRegistry
 from repro_torch.device import resolve_device, to_device
+from repro_torch.models import layers as nn
 from repro_torch.models.registry import ModelAPI
 from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.kv_pool import PagedKVPool
@@ -296,13 +302,19 @@ def _engine_step_math(api: ModelAPI, n_micro: int, block_tokens: int | None):
             logits, new_cache = api.decode_step(params, cache, toks,
                                                 written)
             if not ring:
-                # a recurrent state (RWKV wkv state and shift tokens) is
-                # advanced irreversibly by any token it sees, the dummy
-                # too: every non-mover row keeps its pre-step leaves, and
-                # the movers' new rows are written into the cache in place.
-                for key, leaf in cache.items():
+                # a recurrent state (RWKV wkv state and shift tokens, Mamba
+                # conv window and SSM state) is advanced irreversibly by
+                # any token it sees, the dummy too: every non-mover row
+                # keeps its pre-step leaves, and the movers' new rows are
+                # written into the cache in place. A leaf returned as the
+                # same tensor was written in place as a ring (zamba2's
+                # shared attention): the ring argument above holds for it.
+                for leaf, new in zip(nn.tree_leaves(cache),
+                                     nn.tree_leaves(new_cache), strict=True):
+                    if new is leaf:
+                        continue
                     keep = movers.reshape((1, -1) + (1,) * (leaf.dim() - 2))
-                    leaf.copy_(torch.where(keep, new_cache[key], leaf))
+                    leaf.copy_(torch.where(keep, new, leaf))
             picked = torch.argmax(logits, dim=-1).to(torch.int32)
 
             pref_mover = movers & prefilling
@@ -1200,8 +1212,9 @@ class ServeEngine:
             mnew[slot] = req.max_new_tokens
         # recycled slots get pristine cache rows, in place
         rows = to_device(np.flatnonzero(mask).astype(np.int64), self.device)
-        for key, leaf in self.cache.items():
-            leaf[:, rows] = self._cache0[key][:, rows]
+        for leaf, leaf0 in zip(nn.tree_leaves(self.cache),
+                               nn.tree_leaves(self._cache0), strict=True):
+            leaf[:, rows] = leaf0[:, rows]
         # the slot state in place too: the graphs read these tensors
         dev = self.device
         new = _admit_rows(self._dev, to_device(mask, dev),

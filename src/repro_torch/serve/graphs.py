@@ -33,6 +33,8 @@ import time
 
 import torch
 
+from repro_torch.models import layers as nn
+
 # the slot-state leaves an engine step changes; the rest are read-only
 STEP_LEAVES = ("state", "tok", "consumed", "n_gen")
 
@@ -70,7 +72,7 @@ class StepGraphs:
 
     def _capture_all(self) -> None:
         # the warm-up is a real step, so it runs on copies of the state
-        cache = {k: v.clone() for k, v in self._cache.items()}
+        cache = nn.tree_map(torch.clone, self._cache)
         dev = {k: v.clone() for k, v in self._dev.items()}
         pool = torch.cuda.graph_pool_handle()
         for m in self.keys:

@@ -1,5 +1,6 @@
 """The port's serve CLI against the reference CLI: under each of the six
-admission policies, for the other dense configs (``--arch``), under the
+admission policies, for the other dense configs and the nested-cache
+families zamba2-7b and whisper-base (``--arch``), under the
 tiered host pool and fault plans
 (``--tiers``, ``--no-tier-migrate``, ``--faults``, with tenants too), and
 across a crash and its restore (``--faults crash:@S --snapshot-dir
@@ -219,3 +220,47 @@ def test_cli_dense_configs_equal_reference(arch, monkeypatch):
         assert got[key] == want[key], key
     assert got["arch"] == arch and got["generated_tokens"] == 24
     assert got["paging"]["paged"] and got["paging"]["page_outs"] > 0
+
+
+@pytest.mark.parametrize("extra", [[], ["--tiers", "ddr5:2,cxl:2"]])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-base"])
+def test_cli_nested_cache_archs_equal_reference(arch, extra, monkeypatch):
+    """``--arch zamba2-7b`` and ``--arch whisper-base`` at the defaults
+    (SMOKE): paging gated off by the cache family, and the reference
+    CLI's report field for field: 8 requests, 128 tokens in 40 steps, 16
+    host dispatches, 1 blocked boundary. ``--tiers`` configures a pool
+    that is not there, in both CLIs alike."""
+    argv = ["serve", "--arch", arch, "--no-warmup", *extra]
+    want = _report(jserve.main, argv, monkeypatch)
+    got = _report(tserve.main, argv + ["--device", "cpu"], monkeypatch)
+    assert set(got) - UNCOMPARED == set(want) - UNCOMPARED
+    for key in set(want) - UNCOMPARED:
+        assert got[key] == want[key], key
+    assert got["arch"] == arch and got["paging"]["paged"] is False
+    assert (got["requests"], got["generated_tokens"], got["steps"],
+            got["host_dispatches"], got["host_blocked"]) == (
+        8, 128, 40, 16, 1)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--tenants", "redis"],
+    ["--faults", "poison:2@8"],
+    ["--snapshot-dir", "SNAP", "--snapshot-every", "2"],
+])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-base"])
+def test_cli_nested_cache_arch_errors_equal_reference(arch, flags,
+                                                      monkeypatch, tmp_path):
+    """Tenants, fault plans and snapshots need the paged pool, which these
+    cache families gate off: both CLIs raise the same ValueError when the
+    engine is built."""
+    flags = [str(tmp_path / f) if f == "SNAP" else f for f in flags]
+    errs = []
+    for main, extra in ((jserve.main, []), (tserve.main, ["--device", "cpu"])):
+        monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch,
+                                          "--no-warmup", *flags, *extra])
+        with pytest.raises(ValueError) as e:
+            with contextlib.redirect_stdout(io.StringIO()):
+                main()
+        errs.append(str(e.value))
+    assert errs[1] == errs[0]
+    assert "paging disabled (or a non-pageable cache family)" in errs[1]

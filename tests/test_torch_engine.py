@@ -2,9 +2,11 @@
 at K = 1/4/8 x pipeline depth 1/2, the ``host_blocked`` contract, and one
 run on the same arguments as the JAX engine (float32 weights) with equal
 tokens, admission and completion steps, ``paging_stats`` and
-``duplex_speedup``; the same for a recurrent cache (rwkv6-7b, paging
+``duplex_speedup``; the same for a recurrent cache (rwkv6-7b and
+zamba2-7b, whose cache nests Mamba state beside attention rings; paging
 gated off): slot reuse, staggered arrivals with chunked prefill and
-unequal prompts."""
+unequal prompts; the nested caches of zamba2-7b and whisper-base against
+the JAX engine, pristine on recycled slots, and the frozen-row keep."""
 
 import dataclasses
 
@@ -22,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.models import registry as R  # noqa: E402
 from repro.serve import EngineConfig as JaxEngineConfig  # noqa: E402
 from repro.serve import ServeEngine as JaxServeEngine  # noqa: E402
+from repro_torch.models import layers as nn  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import (EngineConfig, ServeEngine,  # noqa: E402
@@ -181,15 +184,18 @@ def test_token_exact_with_tenants_attached(api, params, megastep, depth):
 
 
 # ---------------------------------------------------------------------------
-# a recurrent cache: RWKV6 (paging gated off, frozen-row keep)
+# recurrent caches: RWKV6 and Zamba2 (paging gated off, frozen-row keep)
 # ---------------------------------------------------------------------------
 
 RWKV = "rwkv6-7b"
+# rwkv6-7b's flat cache; zamba2-7b's nested one (Mamba state kept, the
+# shared attention's rings written in place)
+RECURRENT = [RWKV, "zamba2-7b"]
 
 
-@pytest.fixture(scope="module")
-def rwkv_api():
-    return TR.build(RWKV, smoke=True, device="cpu")
+@pytest.fixture(scope="module", params=RECURRENT)
+def rwkv_api(request):
+    return TR.build(request.param, smoke=True, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -206,8 +212,8 @@ def _rwkv_engine(api, params, **kw):
 
 def test_recurrent_state_reset_on_slot_reuse(rwkv_api, rwkv_params):
     """More requests than slots, all at once: a recycled slot's recurrent
-    state (wkv, shift tokens) is wiped at admission
-    (tests/test_serve_engine.py:70-85)."""
+    state (wkv and shift tokens; Mamba state and attention rings) is wiped
+    at admission (tests/test_serve_engine.py:70-85)."""
     prompts = np.random.default_rng(8).integers(
         0, rwkv_api.cfg.vocab, (4, 5)).astype(np.int32)
     ref = _reference(rwkv_api, rwkv_params, prompts, 6, 32, 2)
@@ -298,3 +304,133 @@ def test_recurrent_same_run_as_the_jax_engine():
         assert te.completed[b].done_step == je.completed[a].done_step
     assert te.paging_stats() == je.paging_stats()
     assert te.stats() == je.stats()
+
+
+# ---------------------------------------------------------------------------
+# nested caches: zamba2-7b (recurrent) and whisper-base (ring)
+# ---------------------------------------------------------------------------
+
+NESTED = {"zamba2-7b": "_hybrid_api", "whisper-base": "_encdec_api"}
+
+
+@pytest.mark.parametrize("arch", list(NESTED))
+def test_nested_cache_same_run_as_the_jax_engine(arch):
+    """The smoke model in float32 on the reference's weights: the port's
+    engine and the JAX engine give the same tokens, admission and
+    completion steps and stats under staggered arrivals, unequal prompts
+    and chunked prefill, with slots recycled."""
+    from repro_torch.models import encdec as TE
+    from repro_torch.models import hybrid as TH
+    convert = {"zamba2-7b": TH.params_from_jax,
+               "whisper-base": TE.params_from_jax}[arch]
+    japi0 = R.build(arch, smoke=True)
+    jp = japi0.init(jax.random.PRNGKey(9))
+    japi = getattr(R, NESTED[arch])(arch, dataclasses.replace(
+        japi0.cfg, dtype=jnp.float32))
+    jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    tcfg = dataclasses.replace(TR.build(arch, smoke=True,
+                                        device="cpu").cfg,
+                               dtype=torch.float32)
+    tapi = getattr(TR, NESTED[arch])(arch, tcfg, "cpu")
+    tp = convert(jax.tree.map(lambda a: np.asarray(a, np.float32), jp),
+                 tcfg)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, 256, int(rng.integers(3, 9))).astype(
+        np.int32) for _ in range(5)]
+    kw = dict(max_batch=2, cache_len=32, prefill_chunk=3, megastep=4,
+              pipeline_depth=2)
+    je = JaxServeEngine(japi, jp32, JaxEngineConfig(**kw))
+    te = ServeEngine(tapi, tp, EngineConfig(**kw, device="cpu"))
+    assert not te.paged
+    jr = [je.submit(p, 7, arrival_step=2 * i).rid
+          for i, p in enumerate(prompts)]
+    tr = [te.submit(p, 7, arrival_step=2 * i).rid
+          for i, p in enumerate(prompts)]
+    jo, to = je.run(max_steps=300), te.run(max_steps=300)
+    for a, b in zip(jr, tr):
+        np.testing.assert_array_equal(to[b], jo[a])
+        assert te.completed[b].admitted_step == je.completed[a].admitted_step
+        assert te.completed[b].done_step == je.completed[a].done_step
+    assert te.paging_stats() == je.paging_stats()
+    assert te.stats() == je.stats()
+
+
+@pytest.mark.parametrize("arch", list(NESTED))
+def test_recycled_slots_get_pristine_nested_rows(arch, monkeypatch):
+    """Four requests on two slots: at every admission into a recycled
+    slot, every leaf of the nested cache (zamba2: Mamba conv window and
+    SSM state, attention rings; whisper: self rings, cross K/V) holds the
+    pristine row of ``_cache0`` in that slot, after the slot's earlier
+    request had dirtied it; the other slot's rows are untouched."""
+    api = TR.build(arch, smoke=True, device="cpu")
+    params = api.init(torch.Generator().manual_seed(5))
+    eng = ServeEngine(api, params, EngineConfig(max_batch=2, cache_len=32,
+                                                device="cpu"))
+    real = eng._admit
+    checked, used = [], set()
+
+    def admit(now):
+        before = [r for r in eng.slots]
+        old = [t.clone() for t in nn.tree_leaves(eng.cache)]
+        n = real(now)
+        for slot, (was, req) in enumerate(zip(before, eng.slots)):
+            leaves = zip(nn.tree_leaves(eng.cache),
+                         nn.tree_leaves(eng._cache0), old)
+            if req is not was and req is not None:
+                dirty = False
+                for leaf, leaf0, prev in leaves:
+                    assert torch.equal(leaf[:, slot], leaf0[:, slot])
+                    dirty |= not torch.equal(prev[:, slot], leaf0[:, slot])
+                checked.append((slot, slot in used, dirty))
+                used.add(slot)
+            else:
+                for leaf, _, prev in leaves:
+                    assert torch.equal(leaf[:, slot], prev[:, slot])
+        return n
+
+    monkeypatch.setattr(eng, "_admit", admit)
+    prompts = np.random.default_rng(6).integers(0, 256, (4, 5))
+    for p in prompts:
+        eng.submit(p.astype(np.int32), 4)
+    eng.run(max_steps=200)
+    assert len(eng.completed) == 4
+    # both slots were recycled with state left by their first request
+    recycled = [c for c in checked if c[1]]
+    assert len(recycled) == 2 and all(dirty for _, _, dirty in recycled)
+
+
+def test_keep_leaves_non_mover_mamba_rows_byte_for_byte():
+    """One engine step of zamba2-7b on a cache filled with noise: row 0 is
+    prefilling (a mover), row 1 is empty (a non-mover fed the dummy
+    token). After the keep, row 1's Mamba leaves are unchanged byte for
+    byte and row 0's advanced; the attention rings are the same tensors,
+    written at each row's write position."""
+    from repro_torch.serve.engine import _engine_step_math
+    from repro_torch.serve.queue import S_EMPTY, S_PREFILL
+    api = TR.build("zamba2-7b", smoke=True, device="cpu")
+    params = api.init(torch.Generator().manual_seed(2))
+    cache = api.init_cache(2, 16)
+    gen = torch.Generator().manual_seed(3)
+    for leaf in nn.tree_leaves(cache["mamba"]):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen))
+    rings = list(nn.tree_leaves(cache["attn"]))
+    before = nn.tree_map(torch.clone, cache)
+    dev = {"state": torch.tensor([S_PREFILL, S_EMPTY], dtype=torch.int32),
+           "tok": torch.tensor([7, 9], dtype=torch.int32),
+           "consumed": torch.tensor([3, 0], dtype=torch.int32),
+           "n_gen": torch.zeros(2, dtype=torch.int32),
+           "prompt_len": torch.tensor([6, 0], dtype=torch.int32),
+           "max_new": torch.tensor([4, 0], dtype=torch.int32),
+           "prompt": torch.zeros((2, 16), dtype=torch.int32)}
+    step = _engine_step_math(api, 1, None)
+    new_dev, staged = step(params, cache, dev, 1)
+    assert staged is None and new_dev["consumed"].tolist() == [4, 0]
+    def bits(t):
+        return t.contiguous().view(torch.uint8)
+
+    for key in ("conv", "ssm"):
+        leaf, old = cache["mamba"][key], before["mamba"][key]
+        assert torch.equal(bits(leaf[:, 1]), bits(old[:, 1]))
+        assert not torch.equal(leaf[:, 0], old[:, 0])
+    assert [t for t in nn.tree_leaves(cache["attn"])] == rings
+    assert torch.all(cache["attn"]["pos"][:, 0, 3] == 3)

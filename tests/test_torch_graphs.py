@@ -6,9 +6,11 @@ into them, each step's tokens and staged slab copied out, the packed
 readback — runs here. Against the eager ``_megastep_math``: token-exact,
 with equal ``stats()``, ``paging_stats()`` and micro-step counts, at
 K = 1/2/4/8, pipeline depth 1 and 2 and prefill_chunk 1 and 4, with the
-tenants attached, and for a recurrent cache (rwkv6-7b); and the same run
-as the JAX engine."""
+tenants attached, for a recurrent cache (rwkv6-7b) and for the nested
+caches of zamba2-7b and whisper-base; the same run as the JAX engine; and
+the capture's warm-up on a nested copy of the cache."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -25,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.models import registry as R  # noqa: E402
 from repro.serve import EngineConfig as JaxEngineConfig  # noqa: E402
 from repro.serve import ServeEngine as JaxServeEngine  # noqa: E402
+from repro_torch.models import layers as nn  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import (EngineConfig, KVStoreTenant,  # noqa: E402
@@ -151,6 +154,104 @@ def test_graph_steps_recurrent_cache(rwkv_api, rwkv_params, megastep, chunk):
         want = reference_decode(rwkv_api, rwkv_params, p[None], 6,
                                 cache_len=32).numpy()[0]
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-base"])
+@pytest.mark.parametrize("megastep", [1, 8])
+def test_graph_steps_nested_cache(arch, megastep):
+    """zamba2-7b (Mamba state kept, rings written in place) and
+    whisper-base (self rings, cross K/V): unpaged, the static nested cache
+    written in place by the steps, equal to the eager megastep and to
+    ``reference_decode``."""
+    api = TR.build(arch, smoke=True, device="cpu")
+    params = api.init(torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, api.cfg.vocab, n).astype(np.int32)
+               for n in (4, 7, 3, 6)]
+    cfg = EngineConfig(max_batch=2, cache_len=32, prefill_chunk=3,
+                       megastep=megastep, pipeline_depth=2, device="cpu")
+    eager = _serve(api, params, cfg, prompts, 5, graphs=False)
+    graphed = _serve(api, params, cfg, prompts, 5, graphs=True)
+    _assert_same_run(eager, graphed)
+    assert graphed[2]["paged"] is False
+    leaves = list(nn.tree_leaves(graphed[4].cache))
+    assert all(a is b for a, b in zip(leaves, nn.tree_leaves(
+        graphed[4].graphs._cache)))
+    for p, got in zip(prompts, graphed[0]):
+        want = reference_decode(api, params, p[None], 5,
+                                cache_len=32).numpy()[0]
+        np.testing.assert_array_equal(got, want)
+
+
+class _NoCuda:
+    """Stand-ins for the ``torch.cuda`` calls ``StepGraphs._capture_all``
+    makes, so its host logic runs on the CPU: streams and graphs that do
+    nothing, a capture context that runs the step eagerly."""
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    class CUDAGraph:
+        def replay(self):
+            pass
+
+    @staticmethod
+    @contextlib.contextmanager
+    def ctx(*args, **kwargs):
+        yield
+
+
+def test_capture_warms_up_on_a_nested_copy(monkeypatch):
+    """The capture's warm-up is a real step, so it must run on a copy of
+    the state: for zamba2-7b's nested cache, the warm-up of every graph
+    gets a tree of the static cache's structure whose every leaf is a new
+    tensor, equal in value to the static leaf at the first warm-up; the
+    capture itself gets the static tensors."""
+    api = TR.build("zamba2-7b", smoke=True, device="cpu")
+    params = api.init(torch.Generator().manual_seed(6))
+    eng = ServeEngine(api, params, EngineConfig(
+        max_batch=2, cache_len=16, prefill_chunk=2, device="cpu"),
+        _graphs=False)
+    for name, value in (("graph_pool_handle", lambda: None),
+                        ("Stream", _NoCuda.Stream),
+                        ("current_stream", lambda: _NoCuda.Stream()),
+                        ("stream", _NoCuda.ctx),
+                        ("CUDAGraph", _NoCuda.CUDAGraph),
+                        ("graph", _NoCuda.ctx),
+                        ("synchronize", lambda: None)):
+        monkeypatch.setattr(torch.cuda, name, value)
+    static = list(nn.tree_leaves(eng.cache))
+    for leaf in static:
+        leaf.add_(1)
+    start = [t.clone() for t in static]
+    calls = []
+    from repro_torch.serve.engine import _engine_step_math
+    step_fn = _engine_step_math(api, 2, None)
+
+    def spy(params, cache, dev, m):
+        leaves = list(nn.tree_leaves(cache))
+        calls.append((m, leaves, [t.clone() for t in leaves]))
+        return step_fn(params, cache, dev, m)
+
+    graphs = StepGraphs(spy, params, eng.cache, eng._dev, 2, extract=False,
+                        capture=True)
+    assert graphs.captured and graphs.keys == (1, 2)
+    assert [c[0] for c in calls] == [1, 1, 2, 2]
+    for i, (m, leaves, values) in enumerate(calls):
+        if i % 2 == 0:      # the warm-up on the side stream
+            assert len(leaves) == len(static)
+            for leaf, ref, val in zip(leaves, static, values):
+                assert leaf is not ref
+                assert leaf.data_ptr() != ref.data_ptr()
+                assert leaf.shape == ref.shape and leaf.dtype == ref.dtype
+            if i == 0:
+                assert all(torch.equal(v, ref)
+                           for v, ref in zip(values, start))
+        else:               # the capture, on the static tensors
+            assert all(a is b for a, b in zip(leaves, static))
+    nested = graphs._cache
+    assert set(nested) == {"mamba", "attn"} and nested is eng.cache
 
 
 def test_graph_steps_same_run_as_the_jax_engine():
