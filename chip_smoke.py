@@ -7,14 +7,16 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each kernel against its
 plain PyTorch version on the card (``flash_attention`` also at head dims
-80, 112 and 128, timed at a stablelm-3b, a kimi-k2 and a llama3.2-3b
-prefill shape), records beside the short kernels the
+80, 112 and 128, timed at a stablelm-3b, a kimi-k2, a llama3.2-3b and a
+windowed mixtral-8x7b prefill shape; the stream kernels also at the MoE
+paths' row widths), records beside the short kernels the
 device time of an empty kernel launched at the same geometry (the launch
 floor), and drives two serving paths at full
 width (smollm-135m: 30 layers, d_model 576, vocab 49152; random seeded
-weights), the full-sequence forward of eight models and the serving of
-rwkv6-7b, zamba2-7b and whisper-base, each with the launch counters set
-to 0 just before it and read just after:
+weights), the full-sequence forward of ten models and the serving of
+rwkv6-7b, mixtral-8x7b, kimi-k2-1t-a32b, zamba2-7b and whisper-base,
+each with the launch counters set to 0 just before it and read just
+after:
 
   * the main path: LLM decode through the duplex-paged KV pool, the
     engine replaying CUDA graphs of its steps, every request token for
@@ -78,6 +80,18 @@ to 0 just before it and read just after:
     request token for token against ``reference_decode``, then with the
     eager megastep, which must serve the same (``serve_unpaged``: no
     kernel may launch);
+  * the MoE paths: mixtral-8x7b (16 of its 32 layers, 46.97 GB) and
+    kimi-k2-1t-a32b (1 of its 61 layers, 38.8 GB), at the published
+    widths, weights drawn on the card, one at a time: each served through
+    the paged pool with the main path's settings and its first 8 requests
+    (graphed under the sync watch, then eager: token-exact vs
+    ``reference_decode``, the same tokens, stats and paging both ways,
+    the three stream kernels launched at row widths 32768 and 1792, no
+    host sync), then one
+    forward (mixtral at B=1, S=8192, past its 4096-token window; kimi-k2
+    at B=1, S=2048, hd 112) that must launch ``flash_attention`` once per
+    layer, with logits within ``LOGITS_ATOL`` of the plain forward on the
+    kernel forward's routing and a control beyond it;
   * the Zamba2 paths: zamba2-7b FULL (81 Mamba2 layers, d_model 3584, a
     shared attention block applied 13 times; 13.5 GB of weights drawn on
     the card) served as the RWKV path is at a batch of 8, its nested
@@ -298,6 +312,9 @@ FLASH_CHECKS = [
     # on 8) prefill shapes, which the dense-width path runs
     (1, 2048, 24, 8, 128, torch.bfloat16, {}),
     (1, 2048, 40, 8, 128, torch.bfloat16, {}),
+    # mixtral-8x7b's forward on the MoE path: 32 heads on 8, a window of
+    # 4096 at S=8192 (kimi-k2's hd-112 shape is above)
+    (1, 8192, 32, 8, 128, torch.bfloat16, {"window": 4096}),
 ]
 
 # the tensor-core body at the path shapes, held tighter than 3e-2, which
@@ -307,17 +324,21 @@ FLASH_CHECKS = [
 # scaled_dot_product_attention call on the same inputs (which rounds P to
 # bf16 too) by at most FLASH_TC_ULPS bf16 ulps of the block's largest
 # |o|. A control, ref.attention with the last 64 queries losing their
-# first 64 keys (a window of S - 64: one kv tile), must break it.
+# first 64 keys (a window of S - 64: one kv tile; under a window W, every
+# query past W - 64 losing its oldest 64), must break it.
 FLASH_PATH = {(4, 2048, 9, 3, 64), (2, 512, 8, 1, 256), (1, 2048, 32, 32, 80),
               (1, 2048, 64, 8, 112), (1, 2048, 24, 8, 128),
-              (1, 2048, 40, 8, 128)}
+              (1, 2048, 40, 8, 128), (1, 8192, 32, 8, 128)}
 # the head dims beyond the serving and forward paths' 64 and 256, timed at
 # a prefill shape of a config of the repo that has them (causal, S =
 # 2048): stablelm-3b (d_model 2560, 32 heads of 80), kimi-k2 (64 heads of
-# 112 on 8 kv heads) and llama3.2-3b (24 heads of 128 on 8)
-FLASH_WIDTHS = [("stablelm-3b", (1, 2048, 32, 32, 80)),
-                ("kimi-k2-1t", (1, 2048, 64, 8, 112)),
-                ("llama3.2-3b", (1, 2048, 24, 8, 128))]
+# 112 on 8 kv heads) and llama3.2-3b (24 heads of 128 on 8); and
+# mixtral-8x7b's forward shape (32 heads of 128 on 8, S = 8192, a window
+# of 4096)
+FLASH_WIDTHS = [("stablelm-3b", (1, 2048, 32, 32, 80), {}),
+                ("kimi-k2-1t", (1, 2048, 64, 8, 112), {}),
+                ("llama3.2-3b", (1, 2048, 24, 8, 128), {}),
+                ("mixtral-8x7b", (1, 8192, 32, 8, 128), {"window": 4096})]
 FLASH_TC_ULPS = 1
 
 # the forward path: (arch, batch, sequence); paligemma's first 256
@@ -399,6 +420,41 @@ ZAMBA_F32_TOL = 1e-4
 # whisper-base's forward: (batch, stub frames, decoder tokens); 1500 and
 # 448 are Whisper's published n_audio_ctx and n_text_ctx, so no cut
 WHISPER_FORWARD = (2, 1500, 448)
+# the MoE paths: (arch, layers kept, the published config's num_layers,
+# d_model, num_heads, num_kv_heads, d_ff, vocab, experts, top_k, window,
+# and the forward's batch and sequence). Widths are the published ones;
+# depth is cut to fit the card's 80 GB. mixtral-8x7b's 32 layers are 93.4
+# GB in bf16 (1.4513 B parameters a layer, an untied 32000 x 4096
+# embedding and head): 16 layers are 46.97 GB. One layer of
+# kimi-k2-1t-a32b is 17.03 B parameters, 16.91 B of them its 384 experts
+# (34.05 GB), and its untied 163840 x 7168 embedding and head add 4.70
+# GB: 38.8 GB in all, where two layers would be ~72.8 GB before any
+# activation. The forwards: mixtral at S=8192, past its 4096-token
+# window; kimi-k2 at S=2048, the hd-112 row's shape. Each is served at
+# the main path's SERVE settings (max_batch 8: the capacity of 8 slots an
+# expert is at least the batch, so no slot is dropped and rows do not
+# interact).
+MOE_RUNS = [
+    ("mixtral-8x7b", 16, (32, 4096, 32, 8, 14336, 32000, 8, 2, 4096),
+     (1, 8192)),
+    ("kimi-k2-1t-a32b", 1, (61, 7168, 64, 8, 2048, 163840, 384, 8, None),
+     (1, 2048)),
+]
+# the MoE serving paths serve the first MOE_REQUESTS of the main path's
+# requests (one batch of max_batch: the reference decode, host-bound at
+# these depths, runs once, and so does the eager megastep's pass), still
+# oversubscribing the pool both ways
+MOE_REQUESTS = 8
+# the MoE experts' gate and up products (``layers._bmm_f32``: cuBLAS
+# writes f32 from bf16 operands) against the f32 product of the same bf16
+# values, relative to the largest |product|: the two differ only in the
+# order of f32 sums (~1e-6 relative at 7168 terms), where rounding the
+# product to bf16, the control, is ~2**-9 off
+BMM_F32_RTOL = 1e-4
+# the stream kernels' row widths on the MoE serving paths, as cut:
+# kv_dims = layers x 2 x kv heads x hd (32768 and 1792)
+MOE_KV_DIMS = {arch: layers * 2 * dims[3] * (dims[1] // dims[2])
+               for arch, layers, dims, _ in MOE_RUNS}
 # kernel instances whose -Xptxas -v report must show no spills: the
 # tensor-core flash body at every head dim, wkv6 at the path's hs, and the
 # stream kernels' 16-byte path (<1>), held to 64 registers by their launch
@@ -861,7 +917,7 @@ def check_flash_blocks(q, k, v, mask, got, want, where) -> None:
     per 64-query block of each (batch, head), its max abs error against
     ``want`` (ref.attention) less SDPA's, in bf16 ulps of the block's
     largest |want|, and the same for the control (a window of S - 64),
-    which must exceed the limit."""
+    which must exceed the limit (under a window W, a window of W - 64)."""
     from repro_torch.kernels import ref
     B, S, H, hd = q.shape
     blocks = lambda x: x.float().view(B, S // 64, 64, H, hd).amax((2, 4))
@@ -870,7 +926,8 @@ def check_flash_blocks(q, k, v, mask, got, want, where) -> None:
                      - 7)
     lib_err = blocks((sdpa_call(q, k, v, mask)().transpose(1, 2).float()
                       - want.float()).abs())
-    control = ref.attention(q, k, v, **{**mask, "window": S - 64})
+    control = ref.attention(q, k, v, **{
+        **mask, "window": (mask.get("window") or S) - 64})
     over, control_over = (
         ((blocks((x.float() - want.float()).abs()) - lib_err) / ulp)
         .max().item() for x in (got, control))
@@ -1715,6 +1772,242 @@ def whisper_phase(B: int, S_enc: int, S_dec: int) -> dict:
     return out
 
 
+def check_bmm_f32() -> dict:
+    """``layers._bmm_f32`` on the card at kimi-k2's expert shape (8 slots,
+    7168 -> 2048; 64 of its 384 experts) against the f32 product of the
+    same bf16 operands (TF32 off): an f32 result within BMM_F32_RTOL of
+    the largest |product|, and the bf16-rounded product (the control)
+    beyond it."""
+    from repro_torch.models import layers as nn
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator("cuda").manual_seed(5)
+        a = torch.randn((64, 8, 7168), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        b = (torch.randn((64, 7168, 2048), generator=g, device="cuda")
+             / 7168 ** 0.5).to(torch.bfloat16)
+        got = nn._bmm_f32(a, b)
+        want = torch.bmm(a.float(), b.float())
+        control = torch.bmm(a, b).float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    top = want.abs().max().item()
+    err = (got - want).abs().max().item() / top
+    control_err = (control - want).abs().max().item() / top
+    out = {"shape": [64, 8, 7168, 2048], "dtype": str(got.dtype),
+           "max_rel_err": err, "control_max_rel_err": control_err,
+           "rtol": BMM_F32_RTOL, "torch": torch.__version__}
+    print(json.dumps({"bmm_f32": out}), flush=True)
+    if got.dtype != torch.float32 or not err <= BMM_F32_RTOL:
+        fail(f"_bmm_f32 on the card: {got.dtype}, {err} relative to the "
+             f"f32 product (limit {BMM_F32_RTOL})")
+    if not control_err > BMM_F32_RTOL:
+        fail(f"the bf16-rounded product is {control_err} off, within the "
+             f"limit {BMM_F32_RTOL}: the check cannot see a rounding")
+    return out
+
+
+def moe_model(arch: str, layers: int, dims: tuple):
+    """``arch``'s FULL config cut to its first ``layers`` layers, widths
+    untouched, weights drawn on the card from a seed with a CUDA generator
+    (the expert stacks one matrix at a time); fails unless the published
+    config reads ``dims``. Returns (api, params, init seconds, the cut)."""
+    from repro_torch.models import registry
+    full = registry.build(arch, smoke=False, device="cuda").cfg
+    got = (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
+           full.d_ff, full.vocab, full.moe.num_experts, full.moe.top_k,
+           full.window)
+    if got != dims:
+        fail(f"{arch}: not the published config: {got}")
+    api = registry._lm_api(arch, dataclasses.replace(full,
+                                                     num_layers=layers),
+                           "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return (api, params, time.perf_counter() - t0,
+            {"num_layers": [full.num_layers, layers]})
+
+
+def moe_serve_phase(api, params, reduced: dict, shapes: dict) -> dict:
+    """An MoE serving path: ``api``'s model (cut in depth) through
+    ``serve_full`` (the main path's settings and its first MOE_REQUESTS
+    requests, graphed under the sync watch, token-exact, both ways paged,
+    the stream kernels launched; their shapes added to ``shapes``), then
+    ``served_run`` with the eager megastep (the same tokens, launches,
+    stats and paging). One ``decode_step`` at the engine's batch profiled
+    as it comes (``step_profile``)."""
+    arch = api.arch_id
+    _, run = serve_full(api, params, shapes, path=arch,
+                        requests=MOE_REQUESTS)
+    eager, ewall = served_run(run, graphs=False)
+    del eager
+    B = SERVE["max_batch"]
+    cache = api.init_cache(B, SERVE["cache_len"])
+    toks = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    tokens = sum(len(t) for t in run["tokens"])
+    steps, wall, ps = run["decode_steps"], run["wall"], run["paging"]
+    out = {"arch": arch, "reduced": reduced, "requests": MOE_REQUESTS,
+           "prompt": PROMPT_LEN, "gen": GEN, "tokens": tokens,
+           "max_batch": B, "wall_ms": wall * 1e3,
+           "tokens_per_s": tokens / wall, "decode_steps": steps,
+           "wall_ms_per_decode_step": wall * 1e3 / steps,
+           "launches": run["launches"],
+           "paging": {k: ps[k] for k in (
+               "page_ins", "page_outs", "kernel_calls", "duplex_us",
+               "serial_us", "duplex_speedup", "steps", "megasteps",
+               "host_dispatches", "host_blocked")},
+           "peak_memory_bytes": run["peak_memory_bytes"],
+           "graphs": run["graphs"], "capture_s": run["capture_s"],
+           "eager": {"wall_ms": ewall * 1e3, "tokens_per_s": tokens / ewall,
+                     "wall_ms_per_decode_step": ewall * 1e3 / steps},
+           **step_profile(lambda: api.decode_step(params, cache, toks, toks)),
+           "card": gpu_line()}
+    print(json.dumps({"moe_serve_phase": out}), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def routing(replay=None):
+    """Record the experts each ``top_k`` call of the MoE layers picks, in
+    call order (a list of (T, K) index tensors: per layer, ``moe_apply``'s
+    then ``moe_aux_loss``'s), or, given such a list, make each call pick
+    those experts (its gate values gathered from its own logits)."""
+    from repro_torch.models import layers as nn
+    real, picked = nn.top_k, []
+
+    def pick(x, k):
+        if replay is None:
+            vals, idx = real(x, k)
+        else:
+            idx = replay[len(picked)]
+            vals = torch.gather(x, -1, idx)
+        picked.append(idx)
+        return vals, idx
+
+    nn.top_k = pick
+    try:
+        yield picked
+    finally:
+        nn.top_k = real
+
+
+def forward_check(api, params, B: int, S: int) -> dict:
+    """One full-width forward of ``api``'s model at (B, S) with the flash
+    kernel and one without, under ``inference_mode``: the kernel launched
+    once per layer and no other kernel, logits finite and within
+    LOGITS_ATOL of the plain forward's, which a control (one kv tile
+    lost: a window of W - 64, of S - 64 without one) must exceed; one wall
+    reading each and one profile of the kernel's forward, taken as it
+    comes (the launch counter is the check of the launches; the
+    profiler's own count is reported beside it).
+
+    An MoE config's two forwards route each token on their own logits,
+    and a token whose K-th and (K+1)-th router logits nearly tie can take
+    another expert in each, which moves its output by the gap between two
+    experts' outputs, not by rounding. So there the plain forward and the
+    control replay the kernel forward's routing (``routing``), and the
+    plain forward on its own routing is recorded beside them, with the
+    count of (layer, token) routings that differ."""
+    from repro_torch.models import transformer as T
+    cfg = api.cfg
+    arch, L = api.arch_id, cfg.num_layers
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (B, S))).cuda()
+    out = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        with routing() as picked:
+            t0 = time.perf_counter()
+            lk, aux = T.forward(params, cfg, tokens, None, use_kernel=True)
+            torch.cuda.synchronize()
+            wall_kernel = time.perf_counter() - t0
+        launches = all_launches()
+        reset_all_launches()
+        with routing() as own:
+            t0 = time.perf_counter()
+            lp, _ = T.forward(params, cfg, tokens, None)
+            torch.cuda.synchronize()
+            wall_plain = time.perf_counter() - t0
+        plain_launches = all_launches()
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        if launches["flash_attention"] != L or any(
+                n for k, n in launches.items() if k != "flash_attention") \
+                or any(plain_launches.values()):
+            fail(f"{arch}: forward launched {launches} with use_kernel "
+                 f"(want {L} flash_attention) and {plain_launches} without")
+        if lk.shape != (B, S, cfg.vocab) or not torch.isfinite(lk).all():
+            fail(f"{arch}: forward logits {tuple(lk.shape)} not finite")
+        replay = picked or None
+        if replay:
+            out.update(aux=aux.item(), routings=L * B * S, routing_flips=sum(
+                int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
+                for a, b in zip(picked[::2], own[::2])),
+                plain_own_routing_max_abs_diff=(
+                    lk.float() - lp.float()).abs().max().item())
+            del lp
+            with routing(replay):
+                lp, _ = T.forward(params, cfg, tokens, None)
+        del own
+        diff = (lk.float() - lp.float()).abs().max().item()
+        fault = dataclasses.replace(cfg, window=(cfg.window or S) - 64)
+        with routing(replay):
+            lc, _ = T.forward(params, fault, tokens, None)
+        control = (lc.float() - lp.float()).abs().max().item()
+        del lc, lk, lp, picked, replay
+        if not diff <= LOGITS_ATOL:
+            fail(f"{arch}: logits with the kernel differ from the plain "
+                 f"forward's by {diff} (limit {LOGITS_ATOL})")
+        if not control > LOGITS_ATOL:
+            fail(f"{arch}: the control fault moved the logits by {control}, "
+                 f"within the limit {LOGITS_ATOL}")
+        count, ns, _ = _profile(lambda: T.forward(params, cfg, tokens, None,
+                                                  use_kernel=True), iters=1)
+    torch.cuda.empty_cache()
+    return {"arch": arch, "batch": B, "seq": S, "layers": L,
+            "head_dim": cfg.resolved_head_dim(), "heads": cfg.num_heads,
+            "kv_heads": cfg.num_kv_heads, "window": cfg.window,
+            "launches": launches["flash_attention"],
+            "forward_kernel_ms": wall_kernel * 1e3,
+            "forward_plain_ms": wall_plain * 1e3,
+            "forward_device_ms": sum(ns.values()) / 1e6,
+            "device_ops": sum(count.values()),
+            "flash_kernel_ms": sum(t for n, t in ns.items()
+                                   if "flash_kernel" in n) / 1e6,
+            "flash_kernels_profiled": sum(c for n, c in count.items()
+                                          if "flash_kernel" in n),
+            "logits_max_abs_diff": diff,
+            "control_logits_max_abs_diff": control, **out,
+            "card": gpu_line()}
+
+
+def moe_phases(shapes: dict, mark) -> dict:
+    """Each MoE config of MOE_RUNS drawn on the card, served
+    (``moe_serve_phase``), its forward held by ``forward_check``, and
+    freed before the next is drawn; ``mark`` after each."""
+    out = {}
+    for arch, layers, dims, (B, S) in MOE_RUNS:
+        api, params, init_s, reduced = moe_model(arch, layers, dims)
+        print(json.dumps({"moe_model": {
+            "arch": arch, "reduced": reduced,
+            "param_bytes": param_bytes(params), "init_s": init_s,
+            "card": gpu_line()}}), flush=True)
+        serve = moe_serve_phase(api, params, reduced, shapes)
+        forward = {**forward_check(api, params, B, S), "reduced": reduced,
+                   "experts": api.cfg.moe.num_experts,
+                   "top_k": api.cfg.moe.top_k}
+        print(json.dumps({"moe_forward": forward}), flush=True)
+        out[arch] = {"serve": serve, "forward": forward}
+        del api, params
+        torch.cuda.empty_cache()
+        mark(f"moe_{arch}")
+    return out
+
+
 def full_model():
     """smollm-135m FULL on the card with the port's seeded init."""
     from repro_torch.models import registry
@@ -1754,29 +2047,35 @@ def graph_lines(path: str, eng) -> dict:
     return {"graphs": eng.n_graphs, "capture_s": g.capture_s}
 
 
-def serve_full(api, params, shapes_seen: dict) -> tuple[dict, dict]:
-    """The main path: smollm-135m FULL served through the paged pool on
-    the card, replaying the engine's step graphs. Returns the launch
-    counts of this run alone, and the run (a function that builds its
-    engine, its tokens, launches and stats) for ``megastep_turns`` and
+def serve_full(api, params, shapes_seen: dict, path: str = "main",
+               requests: int = N_REQUESTS) -> tuple[dict, dict]:
+    """The main path: smollm-135m FULL (or, on the MoE paths, ``api``'s
+    model) served through the paged pool on the card, replaying the
+    engine's step graphs under the sync watch: every request token for
+    token against ``reference_decode``, both ways paged, the three stream
+    kernels launched, no host sync. Returns the launch counts of this run
+    alone, and the run (a function that builds its engine, its tokens,
+    launches, stats, paging stats, wall seconds, decode steps and peak
+    device memory) for ``served_run``, ``megastep_turns`` and
     ``profile_serving``."""
+    from repro_torch.device import sync_watch
     from repro_torch.kernels import duplex_stream as ds
     from repro_torch.serve import EngineConfig, ServeEngine
 
     cfg = api.cfg
     prompts = np.random.default_rng(1).integers(
-        0, cfg.vocab, (N_REQUESTS, PROMPT_LEN)).astype(np.int32)
-    engine_cfg = EngineConfig(**SERVE, max_queue=N_REQUESTS + 8,
+        0, cfg.vocab, (requests, PROMPT_LEN)).astype(np.int32)
+    engine_cfg = EngineConfig(**SERVE, max_queue=requests + 8,
                               device="cuda")
 
     def main_run_engine(model=api, graphs: bool = True) -> tuple:
-        """A fresh engine holding the main path's requests: replaying
-        its step graphs, or running the eager megastep."""
+        """A fresh engine holding the path's requests: replaying its step
+        graphs, or running the eager megastep."""
         eng = ServeEngine(model, params, engine_cfg,
                           _graphs=None if graphs else False)
         rids = [eng.submit(prompts[i], GEN,
                            arrival_step=i * ARRIVAL_EVERY).rid
-                for i in range(N_REQUESTS)]
+                for i in range(requests)]
         return eng, rids
 
     # warm the libraries and the allocator on a full batch of short requests
@@ -1784,16 +2083,20 @@ def serve_full(api, params, shapes_seen: dict) -> tuple[dict, dict]:
     for i in range(SERVE["max_batch"]):
         warm.submit(prompts[i, :8], 8)
     warm.run()
+    del warm
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     engine, rids = main_run_engine()
     torch.cuda.synchronize()
     ds.reset_launches()
-    with stream_shapes(shapes_seen):
+    with sync_watch() as syncs, stream_shapes(shapes_seen):
         t0 = time.perf_counter()
         outs = engine.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = dict(ds.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
 
     check_decode(api, params, prompts, outs, rids, GEN, SERVE["max_batch"],
                  SERVE["cache_len"])
@@ -1805,8 +2108,11 @@ def serve_full(api, params, shapes_seen: dict) -> tuple[dict, dict]:
     for name, n in launches.items():
         if n <= 0:
             fail(f"the serving path never launched {name}")
+    if syncs:
+        fail(f"{path}: the graphed run synced with the host: {dict(syncs)}")
     tokens = sum(len(v) for v in outs.values())
-    print(f"served {N_REQUESTS} requests of smollm-135m (full width) on "
+    print(f"served {requests} requests of {api.arch_id} (full width, "
+          f"{cfg.num_layers} layers) on "
           f"the card: {tokens} tokens in {wall:.3f} s "
           f"({tokens / wall:.1f} tok/s), all token-exact vs "
           f"reference_decode; page_ins={ps['page_ins']} "
@@ -1817,14 +2123,17 @@ def serve_full(api, params, shapes_seen: dict) -> tuple[dict, dict]:
     return launches, {"engine": main_run_engine,
                       "tokens": [outs[r] for r in rids],
                       "launches": launches, "stats": engine.stats(),
-                      **graph_lines("main", engine)}
+                      "paging": ps, "wall": wall,
+                      "decode_steps": engine.decode_steps,
+                      "peak_memory_bytes": peak, "path": path,
+                      **graph_lines(path, engine)}
 
 
 def served_run(main: dict, graphs: bool) -> tuple:
     """One more run of the main path's requests on a fresh engine,
     replaying its step graphs or running the eager megastep: the same
-    tokens, launches and stats as the main run, or fail. Returns the
-    engine and the wall seconds of ``run()``."""
+    tokens, launches, stats and paging stats as the main run, or fail.
+    Returns the engine and the wall seconds of ``run()``."""
     from repro_torch.kernels import duplex_stream as ds
     eng, rids = main["engine"](graphs=graphs)
     torch.cuda.synchronize()
@@ -1836,12 +2145,13 @@ def served_run(main: dict, graphs: bool) -> tuple:
     mode = "graphs" if graphs else "eager"
     if any(not np.array_equal(outs[r], t)
            for r, t in zip(rids, main["tokens"])):
-        fail(f"the main path's {mode} run served other tokens")
+        fail(f"the {main['path']} path's {mode} run served other tokens")
     if dict(ds.LAUNCHES) != main["launches"] or \
-            eng.stats() != main["stats"]:
-        fail(f"the main path's {mode} run launched {dict(ds.LAUNCHES)} "
-             f"with stats {eng.stats()}; the main run {main['launches']}, "
-             f"{main['stats']}")
+            eng.stats() != main["stats"] or \
+            eng.paging_stats() != main["paging"]:
+        fail(f"the {main['path']} path's {mode} run launched "
+             f"{dict(ds.LAUNCHES)} with stats {eng.stats()}; the first run "
+             f"{main['launches']}, {main['stats']}")
     return eng, wall
 
 
@@ -2603,80 +2913,21 @@ def serve_snapshot(api, params, main: dict, shapes: dict) -> dict:
 
 
 def dense_width_phase(arch: str, B: int, S: int) -> dict:
-    """One full-width forward of ``arch`` (weights drawn on the card from
-    a seed) with the flash kernel and one without, under
-    ``inference_mode``: the kernel launched once per layer; the logits
-    within LOGITS_ATOL of the plain forward's, which a control (the plain
-    forward with the last 64 queries losing their first 64 keys) must
-    exceed; one wall reading each and one profile of the kernel's
-    forward. The model is freed before returning."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import layers as nn
+    """``arch``'s FULL config on the card (weights drawn there from a
+    seed), its forward held by ``forward_check``; the model is freed
+    before returning."""
     from repro_torch.models import registry
-    from repro_torch.models import transformer as T
 
     api = registry.build(arch, smoke=False, device="cuda")
-    cfg = api.cfg
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = api.init(torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    tokens = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab, (B, S))).cuda()
-    L = cfg.num_layers
-    with torch.inference_mode():
-        fa.reset_launches()
-        t0 = time.perf_counter()
-        lk, _ = T.forward(params, cfg, tokens, None, use_kernel=True)
-        torch.cuda.synchronize()
-        wall_kernel = time.perf_counter() - t0
-        launches = fa.LAUNCHES["flash_attention"]
-        fa.reset_launches()
-        t0 = time.perf_counter()
-        lp, _ = T.forward(params, cfg, tokens, None)
-        torch.cuda.synchronize()
-        wall_plain = time.perf_counter() - t0
-        if launches != L or fa.LAUNCHES["flash_attention"]:
-            fail(f"{arch}: forward launched the kernel {launches} times "
-                 f"with use_kernel (want {L}) and "
-                 f"{fa.LAUNCHES['flash_attention']} without (want 0)")
-        if lk.shape != (B, S, cfg.vocab) or not torch.isfinite(lk).all():
-            fail(f"{arch}: forward logits {tuple(lk.shape)} not finite")
-        diff = (lk.float() - lp.float()).abs().max().item()
-        if not diff <= LOGITS_ATOL:
-            fail(f"{arch}: logits with the kernel differ from the plain "
-                 f"forward's by {diff} (limit {LOGITS_ATOL})")
-        lc, _ = T.forward(params, dataclasses.replace(cfg, window=S - 64),
-                          tokens, None)
-        control = (lc.float() - lp.float()).abs().max().item()
-        del lc, lk, lp
-        if not control > LOGITS_ATOL:
-            fail(f"{arch}: the control fault moved the logits by {control}, "
-                 f"within the limit {LOGITS_ATOL}")
-        # one device reading: a single profile of one forward, taken as
-        # it comes (the launch counter above is the check of the launches;
-        # the profiler's own count of them is reported beside it)
-        count, ns, _ = _profile(lambda: T.forward(params, cfg, tokens, None,
-                                                  use_kernel=True), iters=1)
-    sizes = []
-    nn.tree_map(lambda t: sizes.append(t.numel() * t.element_size()), params)
+    out = {**forward_check(api, params, B, S),
+           "param_bytes": param_bytes(params), "init_s": init_s}
     del params
     torch.cuda.empty_cache()
-    out = {"arch": arch, "batch": B, "seq": S, "layers": L,
-           "head_dim": cfg.resolved_head_dim(), "heads": cfg.num_heads,
-           "kv_heads": cfg.num_kv_heads, "param_bytes": sum(sizes),
-           "init_s": init_s, "launches": launches,
-           "forward_kernel_ms": wall_kernel * 1e3,
-           "forward_plain_ms": wall_plain * 1e3,
-           "forward_device_ms": sum(ns.values()) / 1e6,
-           "device_ops": sum(count.values()),
-           "flash_kernel_ms": sum(t for n, t in ns.items()
-                                  if "flash_kernel" in n) / 1e6,
-           "flash_kernels_profiled": sum(c for n, c in count.items()
-                                         if "flash_kernel" in n),
-           "logits_max_abs_diff": diff,
-           "control_logits_max_abs_diff": control, "card": gpu_line()}
     print(json.dumps({"dense_width": out}), flush=True)
     return out
 
@@ -3019,10 +3270,13 @@ def card_main(cpu: tuple) -> int:
     build_all()
     mark("build")
     D = 30 * 2 * 3 * 64          # kv_dims of smollm-135m FULL
-    check_kernels([(2, 16, D), (8, 16, D), (32, 16, D), (3, 5, 1001)])
+    check_kernels([(2, 16, D), (8, 16, D), (32, 16, D), (3, 5, 1001)]
+                  + [(n, 16, d) for d in MOE_KV_DIMS.values()
+                     for n in (1, 4, 8)])
     check_l2([(4, 3, 16, 64), (1, 1, 8, 128), (8, 5, 32, 32),
               (4, 2, 16, D), (4, 32, 16, D), (3, 4, 16, 1001),
-              (12, 2, 16, D)])
+              (12, 2, 16, D)]
+             + [(4, 2, 16, d) for d in MOE_KV_DIMS.values()])
     sweep = [{k: row[k] for k in ("name", "shape", "ms", "plain_ms",
                                   "call_ms", "bound_ms")}
              for n in (2, 8, 32)
@@ -3033,6 +3287,12 @@ def card_main(cpu: tuple) -> int:
     print(json.dumps({"kernel_sweep": sweep}), flush=True)
     kernels = [measure(name, PATH_SHAPES[name]) for name in STREAMS]
     kernels.append(measure_l2(PATH_SHAPES["l2_distance"]))
+    # the stream kernels at the MoE serving paths' row widths, at the main
+    # path's (N, T): in the CPU rehearsal at full-width byte counts the MoE
+    # paths hand each kernel these most often too (main() fails otherwise)
+    moe_rows = {arch: {name: measure(name, (*PATH_SHAPES[name][:2], d))
+                       for name in STREAMS}
+                for arch, d in MOE_KV_DIMS.items()}
     # quant_stream at the snapshot cuts' flush shape, also measured before
     # any graph is captured
     flush_row = measure("quant_stream", FLUSH_SHAPE)
@@ -3045,10 +3305,10 @@ def card_main(cpu: tuple) -> int:
         (2, 512, 8, 1, 256), {"prefix_len": 256})}), flush=True)
     # hd 80, 112 and 128 timed beside SDPA at a prefill shape of a config
     # that has them (stablelm-3b and llama3.2-3b run on the dense-width
-    # path; kimi-k2 is not ported yet)
-    print(json.dumps({"flash_attention_widths": [
-        {"config": arch, **measure_flash(shape, {})}
-        for arch, shape in FLASH_WIDTHS]}), flush=True)
+    # path, kimi-k2 and mixtral-8x7b with its window on the MoE path)
+    widths = [{"config": arch, **measure_flash(shape, mask)}
+              for arch, shape, mask in FLASH_WIDTHS]
+    print(json.dumps({"flash_attention_widths": widths}), flush=True)
     mark("flash_kernel")
     check_wkv6()
     wkv_row = measure_wkv6(WKV_CHECKS[-1][:4])
@@ -3127,6 +3387,35 @@ def card_main(cpu: tuple) -> int:
     mark("kernel_rows")
     profile_serving(api, params, main_run, walls)
     mark("serving_profile")
+    # the MoE paths after the whole-call profiles (they take theirs as
+    # they come) and before zamba2-7b is drawn: no other large model is
+    # resident while one is on the card
+    check_bmm_f32()
+    moe_shapes: dict = {}
+    moe = moe_phases(moe_shapes, mark)
+    check_kernels(sorted({s for cnt in moe_shapes.values() for s in cnt}))
+    for arch, d in MOE_KV_DIMS.items():
+        for name in STREAMS:
+            want = (*PATH_SHAPES[name][:2], d)
+            got = max((s for s in moe_shapes[name] if s[2] == d),
+                      key=lambda s: (moe_shapes[name][s], s[0]))
+            if got != want:
+                fail(f"{arch}: the serving path handed {name} {got} most "
+                     f"often (the larger N on a tie); its row was "
+                     f"measured at {want}")
+    for row in kernels:
+        if row["name"] in STREAMS:
+            # at the MoE paths' widths, with the graphed MoE runs' counts
+            row["moe"] = {arch: {
+                **{k: moe_rows[arch][row["name"]][k] for k in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err", "launch_floor_ms")},
+                "launches": moe[arch]["serve"]["launches"][row["name"]]}
+                for arch in MOE_KV_DIMS}
+        if row["name"] == "flash_attention":
+            row["launches_moe"] = {arch: m["forward"]["launches"]
+                                   for arch, m in moe.items()}
+    mark("moe_kernel_checks")
     # the nested-cache families after the profiles that need whole calls
     # (device_profile), and zamba2-7b's forward, whose trace of ~0.46 M
     # events is the largest, last of all profiles: after it the main

@@ -1,7 +1,7 @@
 """Layers of the port (the subset of ``repro/models/layers.py`` that the
-dense decoder, RWKV6, Zamba2 and the Whisper encoder-decoder use: norms,
-RoPE, attention for the full sequence and for one decode token, SwiGLU,
-the GELU MLP, cross-entropy).
+dense and MoE decoders, RWKV6, Zamba2 and the Whisper encoder-decoder
+use: norms, RoPE, attention for the full sequence and for one decode
+token, SwiGLU, the GELU MLP, the token-choice MoE block, cross-entropy).
 
 Conventions follow the reference: params are nested dicts of tensors,
 layer stacks carry a leading L axis, activations and params default to
@@ -309,6 +309,162 @@ def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
     h = F.gelu((x @ params["w_in"] + params["b_in"]).float(),
                approximate="tanh")
     return h.to(x.dtype) @ params["w_out"] + params["b_out"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k, capacity-dropped, argsort dispatch)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+
+
+def _expert_stack(gen: torch.Generator, lead: tuple, experts: int,
+                  in_dim: int, out_dim: int, dtype) -> torch.Tensor:
+    """(*lead, experts, in_dim, out_dim) N(0, 1/in_dim) weights drawn one
+    (in_dim, out_dim) matrix at a time into a ``dtype`` tensor: the f32
+    temporary is one matrix, not the stack (mixtral-8x7b's stack of 16
+    layers would be 30 GB in f32)."""
+    out = torch.empty((*lead, experts, in_dim, out_dim), dtype=dtype,
+                      device=gen.device)
+    flat = out.view(-1, in_dim, out_dim)
+    for i in range(flat.shape[0]):
+        flat[i] = dense_init(gen, (), in_dim, out_dim, dtype)
+    return out
+
+
+def moe_init(gen: torch.Generator, lead: tuple, d_model: int, d_ff: int,
+             spec: MoESpec, dtype=DEFAULT_DTYPE) -> dict:
+    """The reference's ``moe_init`` tree: an f32 router (*lead, D, E) and
+    the experts' SwiGLU stacks (*lead, E, D, F) / (*lead, E, F, D)."""
+    E = spec.num_experts
+    return {"router": dense_init(gen, lead, d_model, E, torch.float32),
+            "w_gate": _expert_stack(gen, lead, E, d_model, d_ff, dtype),
+            "w_up": _expert_stack(gen, lead, E, d_model, d_ff, dtype),
+            "w_down": _expert_stack(gen, lead, E, d_ff, d_model, dtype)}
+
+
+def moe_capacity(tokens: int, spec: MoESpec) -> int:
+    c = math.ceil(spec.top_k * tokens / spec.num_experts
+                  * spec.capacity_factor)
+    c = max(8, min(tokens, int(c)))
+    if c > 256:                       # the reference's aligned capacity
+        c = ((c + 255) // 256) * 256
+    return c
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis of an f32 tensor: the k largest
+    values in descending order, the lower index first among equal values
+    and -0.0 below +0.0 (``torch.topk`` promises neither). A stable
+    descending sort of the values' total-order integer keys."""
+    bits = x.contiguous().view(torch.int32)
+    keys = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    idx = torch.sort(keys, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched product with an f32 result that is never rounded to the
+    operands' dtype (the reference's ``preferred_element_type=f32``). On
+    the card cuBLAS writes f32 from bf16 operands (``out_dtype``); the
+    CPU has no such kernel, so there both operands go to f32, where the
+    bf16 products are exact."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def moe_apply(params, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
+    """Token-choice top-k MoE with capacity dropping, the reference's
+    steps: f32 router logits, ``top_k`` with ``lax.top_k``'s tie order,
+    softmax over the K gates, a stable argsort of the flat expert ids,
+    each slot's rank in its expert, slots ranked C or beyond dropped to
+    the sentinel row E*C, the (E, C, D) buffer, SwiGLU per expert (gate
+    and up products in f32) and the f32 combine (``moe_combine``). No
+    step reads a value on the host (C is fixed by the static token count;
+    each expert's first slot is a search of the sorted ids, where the
+    reference's ``bincount`` would read their maximum on CUDA), so the
+    decode step can be captured in a CUDA graph.
+
+    x: (B, S, D) -> (B, S, D).
+    """
+    B, S, D = x.shape
+    T = B * S
+    E, K = spec.num_experts, spec.top_k
+    C = moe_capacity(T, spec)
+    dev = x.device
+    xt = x.reshape(T, D)
+
+    logits = xt.float() @ params["router"]                      # (T, E)
+    gate_vals, expert_idx = top_k(logits, K)                    # (T, K)
+    gates = torch.softmax(gate_vals, dim=-1)
+
+    flat_e = expert_idx.reshape(-1)                             # (N,)
+    N = T * K
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    rank = torch.arange(N, device=dev) - torch.searchsorted(se, se)
+    keep = rank < C
+    dest = torch.where(keep, se * C + rank, E * C)              # E*C = dropped
+
+    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
+    buf[dest] = xt[order // K]
+    buf = buf[:E * C].reshape(E, C, D)
+    g = F.silu(_bmm_f32(buf, params["w_gate"]))
+    u = _bmm_f32(buf, params["w_up"])
+    eout = torch.bmm((g * u).to(x.dtype), params["w_down"]).reshape(E * C, D)
+
+    # back to the (T, K) slot layout: slot i of the flat layout sits at
+    # position pos[i] of the sorted one
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(N, device=dev)
+    pos = pos.reshape(T, K)
+    out = moe_combine(eout, dest[pos], keep[pos], gates, expert_idx)
+    return out.to(x.dtype).reshape(B, S, D)
+
+
+def moe_combine(eout: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
+                gates: torch.Tensor, expert_idx: torch.Tensor) -> torch.Tensor:
+    """(T, D) f32: each token's K contributions, gate times its slot's row
+    of ``eout`` (E*C, D) (0 for a dropped slot), added from 0 in
+    ascending expert id, one column at a time, whatever order the K slots
+    come in: the order of the reference's scatter-add over the sorted
+    slots, the same on every device and every run (``index_add_`` on CUDA
+    adds with atomics in no fixed order). dest, keep, gates, expert_idx:
+    (T, K)."""
+    T, K = dest.shape
+    by_expert = torch.argsort(expert_idx, dim=-1)
+    dest, keep, gates = (torch.gather(a, 1, by_expert)
+                         for a in (dest, keep, gates))
+    rows = eout[torch.clamp(dest, max=eout.shape[0] - 1)]      # (T, K, D)
+    contrib = torch.where(keep[..., None], rows, 0.0).float() \
+        * gates[..., None]
+    out = torch.zeros((T, eout.shape[1]), dtype=torch.float32,
+                      device=eout.device)
+    for k in range(K):
+        out = out + contrib[:, k]
+    return out
+
+
+def moe_aux_loss(params, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style: E * sum(f_e * p_e)),
+    with f_e the share of tokens that picked expert e among their top-k
+    (a count over T) and p_e the mean router probability."""
+    D = x.shape[-1]
+    logits = x.reshape(-1, D).float() @ params["router"]
+    T, E = logits.shape
+    probs = torch.softmax(logits, dim=-1)
+    idx = top_k(logits, spec.top_k)[1].reshape(-1)
+    frac = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+        0, idx, torch.ones(idx.shape, dtype=torch.float32,
+                           device=x.device)) / T
+    return E * torch.sum(frac * torch.mean(probs, dim=0))
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,16 @@
 """Model registry — uniform API over the port's architectures.
 
-Mirror of ``repro/models/registry.py`` for the dense decoder
-(``_lm_api``: smollm-135m, stablelm-3b, qwen2.5-14b, llama3.2-3b, and
-paligemma-3b with its prefix-LM prefix), RWKV6 (``_rwkv_api``:
+Mirror of ``repro/models/registry.py`` for the decoder-only
+transformer (``_lm_api``: smollm-135m, stablelm-3b, qwen2.5-14b,
+llama3.2-3b, paligemma-3b with its prefix-LM prefix, and the MoE
+configs mixtral-8x7b and kimi-k2-1t-a32b), RWKV6 (``_rwkv_api``:
 rwkv6-7b), the Mamba2 hybrid (``_hybrid_api``: zamba2-7b) and the
 encoder-decoder (``_encdec_api``: whisper-base):
 ``build(arch_id, smoke=, device=)`` returns a ``ModelAPI`` whose members
 close over the arch config and the device. The dense, hybrid and
 encoder-decoder ``forward`` and ``loss_fn`` run the chunked plain
 attention, as the reference's do; RWKV6's run the WKV recurrence through
-``kernels.ops.wkv6`` (the CUDA kernel for a CUDA tensor). MoE comes
-later.
+``kernels.ops.wkv6`` (the CUDA kernel for a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from repro_torch.models.transformer import LMConfig
 
 FAMILY = {"smollm-135m": "dense", "stablelm-3b": "dense",
           "qwen2.5-14b": "dense", "llama3.2-3b": "dense", "rwkv6-7b": "ssm",
+          "mixtral-8x7b": "moe", "kimi-k2-1t-a32b": "moe",
           "whisper-base": "audio", "zamba2-7b": "hybrid",
           "paligemma-3b": "vlm"}
 
@@ -80,7 +81,7 @@ def _lm_api(arch_id: str, cfg: LMConfig,
         decode_step=lambda params, cache, tokens, pos: transformer.
         decode_step(params, cfg, cache, tokens, pos),
         param_count=cfg.param_count(),
-        active_param_count=cfg.param_count(),
+        active_param_count=cfg.active_param_count(),
     )
 
 

@@ -1,12 +1,14 @@
-"""Dense decoder-only transformer LM: ``repro/models/transformer.py``
-for the dense family, prefix-LM (paligemma) included.
+"""Decoder-only transformer LM: ``repro/models/transformer.py`` for the
+dense family, prefix-LM (paligemma) included, and the MoE family
+(mixtral-8x7b with its sliding window, kimi-k2-1t-a32b).
 
 Layers are stacked with a leading L axis, as in the reference, so the
 reference's parameter tree converts leaf for leaf (``params_from_jax``);
 a Python loop over the layers takes the place of ``lax.scan``. Ported:
 the full-sequence ``forward`` (with ``use_kernel`` for the flash-attention
-kernel and ``return_kv``), ``loss_fn``, ``prefill`` and ``decode_step``.
-Not ported: MoE (``aux`` is 0 for the dense family) and any gradient.
+kernel and ``return_kv``; ``aux`` is the mean of the layers' MoE
+load-balancing losses, 0 for a dense config), ``loss_fn``, ``prefill``
+and ``decode_step``. Not ported: any gradient.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as nn
-from repro_torch.models.layers import AttnSpec
+from repro_torch.models.layers import AttnSpec, MoESpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +33,7 @@ class LMConfig:
     vocab: int
     head_dim: int = 0                   # 0 -> d_model // num_heads
     qkv_bias: bool = False
+    moe: MoESpec | None = None
     window: int | None = None           # sliding-window attention
     rope_theta: float = 10000.0
     prefix_len: int = 0                 # prefix-LM prefix (paligemma)
@@ -55,10 +58,24 @@ class LMConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count."""
+        return self._count(self.moe.num_experts if self.moe else 0)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: the router and the top-k
+        experts only)."""
+        return self._count(self.moe.top_k if self.moe else 0)
+
+    def _count(self, experts: int) -> int:
+        """The reference's formula with ``experts`` expert FFNs a layer
+        (0: the dense SwiGLU)."""
         hd = self.resolved_head_dim()
         attn = self.d_model * hd * (self.num_heads * 2
                                     + self.num_kv_heads * 2)
-        ffn = 3 * self.d_model * self.d_ff
+        if self.moe is not None:
+            ffn = (self.d_model * self.moe.num_experts
+                   + 3 * experts * self.d_model * self.d_ff)
+        else:
+            ffn = 3 * self.d_model * self.d_ff
         per_layer = attn + ffn + 2 * self.d_model
         embed = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
         return self.num_layers * per_layer + embed + self.d_model
@@ -71,10 +88,10 @@ class LMConfig:
 def init(generator: torch.Generator, cfg: LMConfig,
          device: torch.device | str = "cpu") -> dict:
     """Random weights from ``generator``, with the reference's
-    distributions: N(0, 1/fan_in) projections, N(0, 0.02) embeddings,
-    unit norm scales. The draws run on the generator's device (a CUDA
-    generator keeps a 14 B-parameter init on the card); the tree is moved
-    to ``device`` at the end."""
+    distributions: N(0, 1/fan_in) projections (an MoE config's router in
+    f32), N(0, 0.02) embeddings, unit norm scales. The draws run on the
+    generator's device (a CUDA generator keeps a 14 B-parameter init on
+    the card); the tree is moved to ``device`` at the end."""
     L, D, dt = cfg.num_layers, cfg.d_model, cfg.dtype
     hd = cfg.resolved_head_dim()
     qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -93,12 +110,17 @@ def init(generator: torch.Generator, cfg: LMConfig,
             "ln1": nn.rmsnorm_init((L,), D, dt),
             "attn": attn,
             "ln2": nn.rmsnorm_init((L,), D, dt),
-            "mlp": {"w_gate": nn.dense_init(g, (L,), D, cfg.d_ff, dt),
-                    "w_up": nn.dense_init(g, (L,), D, cfg.d_ff, dt),
-                    "w_down": nn.dense_init(g, (L,), cfg.d_ff, D, dt)},
         },
         "ln_f": nn.rmsnorm_init((), D, dt),
     }
+    if cfg.moe is not None:
+        params["layers"]["moe"] = nn.moe_init(g, (L,), D, cfg.d_ff, cfg.moe,
+                                              dt)
+    else:
+        params["layers"]["mlp"] = {
+            "w_gate": nn.dense_init(g, (L,), D, cfg.d_ff, dt),
+            "w_up": nn.dense_init(g, (L,), D, cfg.d_ff, dt),
+            "w_down": nn.dense_init(g, (L,), cfg.d_ff, D, dt)}
     if not cfg.tie_embeddings:
         params["lm_head"] = nn.dense_init(g, (), D, cfg.vocab, dt)
     return nn.tree_map(lambda t: t.to(device), params)
@@ -108,10 +130,15 @@ def params_from_jax(np_tree: dict, cfg: LMConfig,
                     device: torch.device | str = "cpu") -> dict:
     """The reference's parameter tree (nested dicts of numpy float32
     arrays; bf16 passes through float32 exactly) as the port's params in
-    ``cfg.dtype`` on ``device``. The two trees have the same layout."""
-    return nn.tree_map(
-        lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-            dtype=cfg.dtype, device=device), np_tree)
+    ``cfg.dtype`` on ``device``, but for the MoE router, which stays f32
+    as the reference keeps it. The two trees have the same layout."""
+    def convert(tree, f32=False):
+        if isinstance(tree, dict):
+            return {k: convert(v, f32 or k == "router")
+                    for k, v in tree.items()}
+        return torch.from_numpy(np.ascontiguousarray(tree, np.float32)).to(
+            dtype=torch.float32 if f32 else cfg.dtype, device=device)
+    return convert(np_tree)
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +162,13 @@ def _unembed(params, cfg: LMConfig, x):
     return x @ params["lm_head"]
 
 
+def _ffn(layer, cfg: LMConfig, h):
+    """The layer's feed-forward block: the MoE block or the SwiGLU MLP."""
+    if cfg.moe is not None:
+        return nn.moe_apply(layer["moe"], h, cfg.moe)
+    return nn.swiglu(layer["mlp"], h)
+
+
 def forward(params, cfg: LMConfig, tokens, prefix_embeds=None,
             use_kernel: bool = False, return_kv: bool = False):
     """tokens: (B, S) int -> logits (B, S, V), aux [, (k, v)].
@@ -143,14 +177,15 @@ def forward(params, cfg: LMConfig, tokens, prefix_embeds=None,
     attn mask makes those P kv positions bidirectionally visible (prefix-LM).
     ``return_kv`` adds the per-layer roped k and v, stacked (L, B, S, KV,
     hd), recomputed from each layer's input (the prefill cache). ``aux`` is
-    the f32 scalar 0: the dense family has no auxiliary loss.
+    the f32 mean over the layers of ``moe_aux_loss`` (0 for a dense
+    config).
     """
     B, S = tokens.shape
     spec = cfg.attn_spec()
     x = _embed_tokens(params, cfg, tokens, prefix_embeds)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     lp = params["layers"]
-    ks, vs = [], []
+    ks, vs, auxes = [], [], []
     for i in range(cfg.num_layers):
         layer = nn.tree_map(lambda t: t[i], lp)
         h = nn.rmsnorm(layer["ln1"], x)
@@ -166,10 +201,13 @@ def forward(params, cfg: LMConfig, tokens, prefix_embeds=None,
             vs.append(vproj.reshape(B, S, spec.num_kv_heads, spec.head_dim))
         x = x + nn.attn_apply(layer["attn"], h, spec, positions, use_kernel)
         h = nn.rmsnorm(layer["ln2"], x)
-        x = x + nn.swiglu(layer["mlp"], h)
+        x = x + _ffn(layer, cfg, h)
+        if cfg.moe is not None:
+            auxes.append(nn.moe_aux_loss(layer["moe"], h, cfg.moe))
     x = nn.rmsnorm(params["ln_f"], x)
     logits = _unembed(params, cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = (torch.mean(torch.stack(auxes)) if auxes else
+           torch.zeros((), dtype=torch.float32, device=x.device))
     if return_kv:
         return logits, aux, (torch.stack(ks), torch.stack(vs))
     return logits, aux
@@ -217,7 +255,7 @@ def decode_step(params, cfg: LMConfig, cache, tokens, pos):
         y, _ = nn.attn_decode_step(layer["attn"], h, lcache, pos, spec)
         x = x + y
         h = nn.rmsnorm(layer["ln2"], x)
-        x = x + nn.swiglu(layer["mlp"], h)
+        x = x + _ffn(layer, cfg, h)
     x = nn.rmsnorm(params["ln_f"], x)
     return _unembed(params, cfg, x[:, 0, :]), cache
 

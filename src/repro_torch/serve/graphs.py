@@ -29,6 +29,7 @@ on the same static tensors, so the bookkeeping runs where the tests do.
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -75,16 +76,27 @@ class StepGraphs:
         cache = nn.tree_map(torch.clone, self._cache)
         dev = {k: v.clone() for k, v in self._dev.items()}
         pool = torch.cuda.graph_pool_handle()
-        for m in self.keys:
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self._run(m, cache, dev)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
-                self._staged[m] = self._run(m, self._cache, self._dev)
-            self._graphs[m] = graph
+        # a dead engine's graphs freed by the cycle collector in the middle
+        # of a capture would be destroyed while the stream captures, which
+        # CUDA refuses (torch.cuda.graph no longer collects first): collect
+        # now and keep the collector off until the captures are done
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            for m in self.keys:
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    self._run(m, cache, dev)
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool):
+                    self._staged[m] = self._run(m, self._cache, self._dev)
+                self._graphs[m] = graph
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize()
 
     def step(self, m: int):

@@ -1,6 +1,7 @@
 """The port's serve CLI against the reference CLI: under each of the six
-admission policies, for the other dense configs and the nested-cache
-families zamba2-7b and whisper-base (``--arch``), under the
+admission policies, for the other dense configs, the MoE configs
+mixtral-8x7b and kimi-k2-1t-a32b and the nested-cache families
+zamba2-7b and whisper-base (``--arch``), under the
 tiered host pool and fault plans
 (``--tiers``, ``--no-tier-migrate``, ``--faults``, with tenants too), and
 across a crash and its restore (``--faults crash:@S --snapshot-dir
@@ -264,3 +265,35 @@ def test_cli_nested_cache_arch_errors_equal_reference(arch, flags,
         errs.append(str(e.value))
     assert errs[1] == errs[0]
     assert "paging disabled (or a non-pageable cache family)" in errs[1]
+
+
+@pytest.mark.parametrize("arch,extra", [
+    ("mixtral-8x7b", []), ("kimi-k2-1t-a32b", []),
+    ("mixtral-8x7b", ["--tiers", "ddr5:2,cxl:2"]),
+    ("mixtral-8x7b", ["--faults", "poison:3@5"])],
+    ids=["mixtral", "kimi", "mixtral-tiers", "mixtral-faults"])
+def test_cli_moe_archs_equal_reference(arch, extra, monkeypatch):
+    """``--arch`` for the MoE configs (SMOKE) through the paged pool: the
+    reference CLI's report field for field. At the defaults both give 23
+    page-ins, 39 page-outs, 22 kernel calls, ``duplex_speedup`` 1.233,
+    16 host dispatches and 1 blocked boundary."""
+    argv = ["serve", "--arch", arch, "--no-warmup", *extra]
+    want = _report(jserve.main, argv, monkeypatch)
+    got = _report(tserve.main, argv + ["--device", "cpu"], monkeypatch)
+    assert set(got) - UNCOMPARED == set(want) - UNCOMPARED
+    for key in set(want) - UNCOMPARED - {"failed_requests"}:
+        assert got[key] == want[key], key
+    records = [[v for _, v in sorted(r.get("failed_requests", {}).items(),
+                                     key=lambda kv: int(kv[0]))]
+               for r in (got, want)]
+    assert records[0] == records[1]
+    assert got["arch"] == arch and got["paging"]["paged"] is True
+    if not extra:
+        p = got["paging"]
+        assert (p["page_ins"], p["page_outs"], p["kernel_calls"],
+                p["duplex_speedup"], got["host_dispatches"],
+                got["host_blocked"]) == (23, 39, 22, 1.233, 16, 1)
+    if extra[:1] == ["--tiers"]:
+        assert got["paging"]["tiers"]["tiered"]
+    if extra[:1] == ["--faults"]:
+        assert got["faults"]["injected"] == 1

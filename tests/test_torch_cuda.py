@@ -1,7 +1,8 @@
 """On-card tests of the port (marker ``cuda``): the CUDA kernels against
 their plain versions, the serving engine token-exact on the GPU, with
 and without tenants, its CUDA graphs of the engine steps against the
-eager megastep (smollm-135m paged, the tenant mix, rwkv6-7b), the
+eager megastep (smollm-135m paged, the tenant mix, rwkv6-7b,
+mixtral-8x7b paged), the MoE block against the CPU's, the
 forward through the flash-attention kernel, the RWKV6 forward
 through the wkv6 kernel, a traced engine against an untraced one, the
 stream simulator on the card against the CPU and its step graphs
@@ -356,6 +357,34 @@ def test_rwkv_forward_launches_wkv6_once_per_layer(cuda):
     torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "kimi-k2-1t-a32b"])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke configs' MoE block in bf16 on the card (cuBLAS writes the
+    gate and up products in f32) against the same block on the CPU (the
+    operands upcast to f32): the same experts, outputs within one bf16 ulp
+    at |out| ~2 (2**-7); two runs on the card bit-equal (the combine adds
+    in a fixed order)."""
+    from repro_torch.models import layers as nn
+    from repro_torch.models import registry
+    api = registry.build(arch, smoke=True, device="cpu")
+    params = api.init(torch.Generator().manual_seed(1))
+    block = nn.tree_map(lambda t: t[0], params["layers"]["moe"])
+    x = torch.randn((3, 11, api.cfg.d_model),
+                    generator=torch.Generator().manual_seed(2)).to(
+        torch.bfloat16)
+    want = nn.moe_apply(block, x, api.cfg.moe)
+    on_card = nn.tree_map(lambda t: t.to(cuda), block)
+    got = nn.moe_apply(on_card, x.to(cuda), api.cfg.moe)
+    again = nn.moe_apply(on_card, x.to(cuda), api.cfg.moe)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               atol=2.0 ** -7, rtol=0)
+    logits = x.reshape(33, -1).float() @ block["router"]
+    assert torch.equal(
+        nn.top_k(logits.to(cuda), api.cfg.moe.top_k)[1].cpu(),
+        nn.top_k(logits, api.cfg.moe.top_k)[1])
+
+
 # ---------------------------------------------------------------------------
 # the engine steps as CUDA graphs
 # ---------------------------------------------------------------------------
@@ -364,13 +393,16 @@ def _graph_case(case):
     """(api, params, config, prompts, gen, tenants?) of one SMOKE case."""
     from repro_torch.models import registry
     from repro_torch.serve import EngineConfig
-    arch = "rwkv6-7b" if case == "rwkv6" else "smollm-135m"
+    arch = {"rwkv6": "rwkv6-7b", "moe": "mixtral-8x7b"}.get(case,
+                                                            "smollm-135m")
     api = registry.build(arch, smoke=True, device="cuda")
     params = api.init(torch.Generator().manual_seed(0))
     prompts = np.random.default_rng(1).integers(
         0, api.cfg.vocab, (6, 7)).astype(np.int32)
     cfg = {"paged": dict(max_batch=3, cache_len=64, block_tokens=4,
                          hbm_blocks=6, prefill_chunk=3, max_queue=8),
+           "moe": dict(max_batch=3, cache_len=64, block_tokens=4,
+                       hbm_blocks=6, prefill_chunk=3, max_queue=8),
            "tenants": dict(max_batch=2, cache_len=64, block_tokens=4,
                            hbm_blocks=10, prefill_chunk=2, max_queue=12),
            "rwkv6": dict(max_batch=3, cache_len=64, prefill_chunk=4,
@@ -416,7 +448,7 @@ def _graph_run(api, params, cfg, prompts, graphs, tenants):
                 ran=calls[0] - built)
 
 
-@pytest.mark.parametrize("case", ["paged", "tenants", "rwkv6"])
+@pytest.mark.parametrize("case", ["paged", "tenants", "rwkv6", "moe"])
 def test_graph_engine_equals_eager_megastep(cuda, case):
     """The graphed engine against the eager megastep on the card: the
     same tokens (and the static-batch oracle's), stats, paging stats,
@@ -455,6 +487,31 @@ def test_graph_engine_equals_eager_megastep(cuda, case):
     if eng.paged:
         assert graphed["launches"]["duplex_kv_stream"] > 0
         eng.pool.check_invariants()
+
+
+def test_capture_while_a_dead_engine_awaits_collection(cuda):
+    """A graphed engine left in a dead reference cycle, then a new graphed
+    engine built with the cycle collector running at nearly every
+    allocation: the new engine's captures must not be broken by the old
+    engine's graphs being destroyed mid-capture (CUDA refuses that; the
+    capture collects first and keeps the collector off)."""
+    import gc
+    from repro_torch.serve import ServeEngine
+    api, params, cfg, prompts = _graph_case("paged")
+    old = ServeEngine(api, params, cfg)
+    old.cycle = old
+    del old
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng = ServeEngine(api, params, cfg)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert eng.graphs.captured and eng.n_graphs == len(eng.graphs.keys)
+    rids = [eng.submit(p, 9, arrival_step=2 * i).rid
+            for i, p in enumerate(prompts)]
+    outs = eng.run(max_steps=300)
+    assert all(len(outs[r]) == 9 for r in rids)
 
 
 def test_failed_capture_raises_without_fallback(cuda):

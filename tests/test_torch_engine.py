@@ -6,7 +6,10 @@ tokens, admission and completion steps, ``paging_stats`` and
 zamba2-7b, whose cache nests Mamba state beside attention rings; paging
 gated off): slot reuse, staggered arrivals with chunked prefill and
 unequal prompts; the nested caches of zamba2-7b and whisper-base against
-the JAX engine, pristine on recycled slots, and the frozen-row keep."""
+the JAX engine, pristine on recycled slots, and the frozen-row keep;
+mixtral-8x7b (MoE routing, a wrapping sliding window) through the paged
+pool against ``reference_decode`` and against the JAX engine at a batch
+of 4 and of 16, where capacity drops couple the rows."""
 
 import dataclasses
 
@@ -434,3 +437,87 @@ def test_keep_leaves_non_mover_mamba_rows_byte_for_byte():
         assert not torch.equal(leaf[:, 0], old[:, 0])
     assert [t for t in nn.tree_leaves(cache["attn"])] == rings
     assert torch.all(cache["attn"]["pos"][:, 0, 3] == 3)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: mixtral-8x7b through the paged pool
+# ---------------------------------------------------------------------------
+
+MOE = "mixtral-8x7b"
+
+
+@pytest.fixture(scope="module")
+def moe_api():
+    return TR.build(MOE, smoke=True, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def moe_params(moe_api):
+    return moe_api.init(torch.Generator().manual_seed(5))
+
+
+@pytest.mark.parametrize("megastep", [1, 4])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_moe_token_exact_vs_reference(moe_api, moe_params, megastep, depth):
+    """mixtral-8x7b's smoke model (8 experts' routing, a sliding window of
+    16 that the 8 + 14 positions of each request wrap) through the
+    oversubscribed paged pool, staggered, with recycled slots. At a batch
+    of 3 the capacity (8) exceeds the tokens, so no slot is dropped and
+    the rows do not interact: token for token the static-batch oracle."""
+    prompts = np.random.default_rng(7).integers(
+        0, moe_api.cfg.vocab, (5, 8)).astype(np.int32)
+    ref = _reference(moe_api, moe_params, prompts, 14, 64,
+                     BASE["max_batch"])
+    eng = ServeEngine(moe_api, moe_params, EngineConfig(
+        **BASE, megastep=megastep, pipeline_depth=depth, device="cpu"))
+    assert eng.paged and eng.cache["k"].shape[2] == 16
+    rids = [eng.submit(prompts[i], 14, arrival_step=2 * i).rid
+            for i in range(5)]
+    outs = eng.run(max_steps=300)
+    for i, rid in enumerate(rids):
+        np.testing.assert_array_equal(outs[rid], ref[i])
+    ps = eng.paging_stats()
+    assert ps["page_ins"] > 0 and ps["page_outs"] > 0
+    eng.pool.check_invariants()
+
+
+@pytest.mark.parametrize("max_batch", [4, 16])
+def test_moe_same_run_as_the_jax_engine(max_batch):
+    """mixtral-8x7b's smoke model in float32 on the reference's weights:
+    the port's engine and the JAX engine give the same tokens, admission
+    and completion steps, stats and paging stats. At a batch of 16 the
+    capacity (10) is below the tokens a step, so slots are dropped and a
+    non-mover row's dummy token can take a live token's slot: the rows
+    couple, in both packages alike."""
+    japi0 = R.build(MOE, smoke=True)
+    jp = japi0.init(jax.random.PRNGKey(3))
+    japi = R._lm_api(MOE, dataclasses.replace(japi0.cfg, dtype=jnp.float32))
+    jp32 = jax.tree_util.tree_map_with_path(
+        lambda path, a: a if path[-1].key == "router" else
+        a.astype(jnp.float32), jp)
+    tcfg = dataclasses.replace(TR.build(MOE, smoke=True, device="cpu").cfg,
+                               dtype=torch.float32)
+    tapi = TR._lm_api(MOE, tcfg, "cpu")
+    tp = TT.params_from_jax(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), jp), tcfg)
+    assert (nn.moe_capacity(max_batch, tcfg.moe) < max_batch) == \
+        (max_batch > 8)
+    rng = np.random.default_rng(13)
+    n = 6 if max_batch == 4 else 20
+    prompts = [rng.integers(0, 256, int(rng.integers(3, 9))).astype(
+        np.int32) for _ in range(n)]
+    kw = dict(max_batch=max_batch, cache_len=32, block_tokens=4,
+              hbm_blocks=6 * max_batch // 3, prefill_chunk=3,
+              max_queue=n + 4, megastep=4, pipeline_depth=2)
+    je = JaxServeEngine(japi, jp32, JaxEngineConfig(**kw))
+    te = ServeEngine(tapi, tp, EngineConfig(**kw, device="cpu"))
+    jr = [je.submit(p, 9, arrival_step=i).rid for i, p in enumerate(prompts)]
+    tr = [te.submit(p, 9, arrival_step=i).rid for i, p in enumerate(prompts)]
+    jo, to = je.run(max_steps=400), te.run(max_steps=400)
+    assert len(to) == n
+    for a, b in zip(jr, tr):
+        np.testing.assert_array_equal(to[b], jo[a])
+        assert te.completed[b].admitted_step == je.completed[a].admitted_step
+        assert te.completed[b].done_step == je.completed[a].done_step
+    assert te.paging_stats() == je.paging_stats()
+    assert te.stats() == je.stats()
