@@ -116,7 +116,17 @@ after:
     qwen2.5-14b and stablelm-3b (weights drawn on the card), which must
     launch ``flash_attention`` once per layer (head dims 128, 128, 80)
     with logits within ``LOGITS_ATOL`` of the plain forward's and a
-    control beyond it.
+    control beyond it;
+  * the sharded path (right after the main path): the main path's
+    requests on ``ShardedServeEngine`` over (1, 1), (2, 1) and (2, 2)
+    meshes of logical ranks on the card, each rank on its own step
+    graphs, each pool shard holding the flat pool's HBM split over the
+    data ranks: the flat engine's tokens and admission/done steps,
+    invariants after every boundary, ICI bytes exactly on the axes of
+    size > 1, no sync but one readback per dispatched megastep, and the
+    stream kernels' launches per shard as the CPU rehearsal counts them;
+    then (2, 2) graphed and eager on 8 requests, which must serve and
+    page the same.
 
 Each serving path prints its engine's graph count (``graphs <path>:``)
 and capture seconds (``graph_capture_s <path>:``) on lines of their own.
@@ -159,6 +169,28 @@ BF16_TC_OPS_PER_S = 989e12
 SERVE = dict(max_batch=8, cache_len=256, block_tokens=16, hbm_blocks=48,
              megastep=8, pipeline_depth=2, prefill_chunk=4)
 N_REQUESTS, PROMPT_LEN, GEN, ARRIVAL_EVERY = 16, 64, 64, 2
+
+# the sharded path: the main path's requests on ShardedServeEngine over
+# these (data, model) meshes of logical ranks on the card, each graphed;
+# then (2, 2) graphed and eager on the first 8 requests, 16 tokens each,
+# 12 HBM blocks a shard so that every shard pages (eager runs are
+# host-bound: four eager ranks take ~25 s on these 128 tokens)
+SHARD_MESHES = ((1, 1), (2, 1), (2, 2))
+SHARD_EAGER = (8, 16, 12)
+# the stream kernels' launches of each graphed sharded run, in all and by
+# pool shard: from the CPU rehearsal at the full width's byte counts (the
+# flat main path launches 30 / 2 / 4)
+SHARD_EXPECT = {
+    (1, 1): {"launches": {"duplex_kv_stream": 30, "quant_stream": 2,
+                          "dequant_stream": 4},
+             "shard_kernel_calls": [36]},
+    (2, 1): {"launches": {"duplex_kv_stream": 39, "quant_stream": 4,
+                          "dequant_stream": 21},
+             "shard_kernel_calls": [32, 32]},
+    (2, 2): {"launches": {"duplex_kv_stream": 39, "quant_stream": 4,
+                          "dequant_stream": 21},
+             "shard_kernel_calls": [32, 32]},
+}
 
 # the tenant path: a smaller LLM batch co-served with both tenants in an
 # oversubscribed pool (40 HBM blocks of (16, 11520) bf16, about 15 MB; the
@@ -2122,6 +2154,9 @@ def serve_full(api, params, shapes_seen: dict, path: str = "main",
           flush=True)
     return launches, {"engine": main_run_engine,
                       "tokens": [outs[r] for r in rids],
+                      "timing": [(engine.completed[r].admitted_step,
+                                  engine.completed[r].done_step)
+                                 for r in rids],
                       "launches": launches, "stats": engine.stats(),
                       "paging": ps, "wall": wall,
                       "decode_steps": engine.decode_steps,
@@ -2153,6 +2188,176 @@ def served_run(main: dict, graphs: bool) -> tuple:
              f"{dict(ds.LAUNCHES)} with stats {eng.stats()}; the first run "
              f"{main['launches']}, {main['stats']}")
     return eng, wall
+
+
+def sharded_run(api, params, dm: tuple, graphs: bool,
+                requests: int = N_REQUESTS, gen: int = GEN,
+                hbm_blocks: int | None = None) -> dict:
+    """The main path's first ``requests`` requests (``gen`` tokens each) on
+    a ``ShardedServeEngine`` over a ``dm`` = (data, model) mesh of logical
+    ranks on the card, each rank on its own step graphs or the eager
+    megastep; the graphed run under the sync watch, with the readbacks
+    counted (``_Readback.wait``) and ``check_invariants`` after every
+    boundary. Each pool shard holds ``hbm_blocks`` (default: the flat
+    pool's split over the data ranks). Returns the run's readings, wall
+    seconds and syncs."""
+    from repro_torch.device import sync_watch
+    from repro_torch.kernels import duplex_stream as ds
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serve import EngineConfig, ShardedServeEngine
+    from repro_torch.serve import engine as engine_mod
+
+    prompts = np.random.default_rng(1).integers(
+        0, api.cfg.vocab, (N_REQUESTS, PROMPT_LEN)).astype(np.int32)
+    d, m = dm
+    mesh = make_debug_mesh(m, devices=[torch.device("cuda", 0)] * (d * m))
+    # every pool shard is built with the config's hbm_blocks: split the
+    # flat pool's HBM over the shards, so the mesh holds as much as it and
+    # every shard pages (with all 48 a shard of 4 rows never evicts)
+    settings = dict(SERVE, hbm_blocks=hbm_blocks or SERVE["hbm_blocks"] // d)
+    eng = ShardedServeEngine(
+        api, params, EngineConfig(**settings, max_queue=N_REQUESTS + 8,
+                                  device="cuda"),
+        mesh=mesh, _graphs=None if graphs else False)
+    rids = [eng.submit(prompts[i], gen, arrival_step=i * ARRIVAL_EVERY).rid
+            for i in range(requests)]
+    pool = eng.pool
+    # wrapped here, not in the package: invariants at every boundary, and
+    # the readbacks the host waited on
+    reconcile, wait = eng._reconcile, engine_mod._Readback.wait
+    boundaries, waits = [0], [0]
+
+    def checked_reconcile(rec):
+        out = reconcile(rec)
+        pool.check_invariants()
+        boundaries[0] += 1
+        return out
+
+    def counted_wait(self):
+        waits[0] += 1
+        return wait(self)
+
+    eng._reconcile = checked_reconcile
+    engine_mod._Readback.wait = counted_wait
+    torch.cuda.synchronize()
+    ds.reset_launches()
+    try:
+        with (sync_watch() if graphs else contextlib.nullcontext(Counter())) \
+                as syncs:
+            t0 = time.perf_counter()
+            outs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine_mod._Readback.wait = wait
+    if graphs and (eng.n_graphs == 0 or any(
+            len(rk.graphs) > eng.cfg.prefill_chunk + 1
+            for rk in eng.ranks)):
+        fail(f"mesh {dm}: the ranks did not serve from their step graphs")
+    ps = eng.paging_stats()
+    readings = {
+        "tokens": [outs[r].tolist() for r in rids],
+        "timing": [(eng.completed[r].admitted_step,
+                    eng.completed[r].done_step) for r in rids],
+        "stats": eng.stats(), "paging": ps,
+        "launches": dict(ds.LAUNCHES),
+        "shard_kernel_calls": [sh.stats["kernel_calls"]
+                               for sh in pool.shards],
+        "boundaries": boundaries[0], "readbacks": waits[0]}
+    return {"readings": readings, "wall": wall, "syncs": dict(syncs),
+            "decode_steps": eng.decode_steps, "n_graphs": eng.n_graphs,
+            "capture_s": eng.capture_s}
+
+
+def serve_sharded(api, params, main: dict) -> dict:
+    """The sharded path: the main path's requests on ``ShardedServeEngine``
+    over each mesh of ``SHARD_MESHES`` (logical ranks on the card), each
+    rank replaying its own step graphs: every request's tokens and
+    admission/done steps the main path's flat engine's, invariants at
+    every boundary, ``/serve/ici/*`` bytes exactly on the axes of size
+    > 1, no host sync but the readback (one per dispatched megastep), and
+    the stream kernels' launches the CPU rehearsal's (``SHARD_EXPECT``).
+    Then (2, 2) graphed and eager on the first ``SHARD_EAGER`` requests:
+    equal tokens, stats, paging stats (``ici`` among them) and launches.
+    Prints one JSON line; returns it."""
+    out = {}
+    for dm in SHARD_MESHES:
+        run = sharded_run(api, params, dm, graphs=True)
+        r = run["readings"]
+        name = f"{dm[0]}x{dm[1]}"
+        if r["tokens"] != [t.tolist() for t in main["tokens"]]:
+            bad = next(i for i, (a, b) in enumerate(
+                zip(r["tokens"], main["tokens"])) if a != b.tolist())
+            fail(f"mesh {name}: request {bad} served other tokens than "
+                 f"the flat engine")
+        if r["timing"] != main["timing"]:
+            fail(f"mesh {name}: admission/done steps {r['timing']} differ "
+                 f"from the flat engine's {main['timing']}")
+        if run["syncs"]:
+            fail(f"mesh {name}: the graphed run synced with the host: "
+                 f"{run['syncs']}")
+        if r["readbacks"] != r["stats"]["host_dispatches"]:
+            fail(f"mesh {name}: {r['readbacks']} readbacks for "
+                 f"{r['stats']['host_dispatches']} dispatched megasteps")
+        ici = {axis: r["paging"]["by_path"].get(f"/serve/ici/{axis}",
+                                                {}).get("bytes", 0.0)
+               for axis in ("data", "model")}
+        for axis, size in zip(("data", "model"), dm):
+            if (ici[axis] > 0) != (size > 1):
+                fail(f"mesh {name}: {ici[axis]} ICI bytes on the {axis} "
+                     f"axis of size {size}")
+        want = SHARD_EXPECT[dm]
+        got = {"launches": r["launches"],
+               "shard_kernel_calls": r["shard_kernel_calls"]}
+        if got != want:
+            fail(f"mesh {name}: launched {got}; the CPU rehearsal "
+                 f"{want}")
+        tokens = sum(len(t) for t in r["tokens"])
+        out[name] = {"tokens_per_s": tokens / run["wall"],
+                     "wall_s": run["wall"],
+                     "wall_ms_per_decode_step":
+                         run["wall"] * 1e3 / run["decode_steps"],
+                     "decode_steps": run["decode_steps"],
+                     "graphs": run["n_graphs"], "capture_s": run["capture_s"],
+                     "launches": r["launches"],
+                     "shard_kernel_calls": r["shard_kernel_calls"],
+                     "ici": r["paging"]["ici"],
+                     "boundaries": r["boundaries"],
+                     "readbacks": r["readbacks"]}
+    runs = {mode: sharded_run(api, params, (2, 2), mode == "graphs",
+                              *SHARD_EAGER)
+            for mode in ("graphs", "eager")}
+    g, e = runs["graphs"]["readings"], runs["eager"]["readings"]
+    for key in ("tokens", "timing", "stats", "paging", "launches",
+                "shard_kernel_calls", "readbacks"):
+        if g[key] != e[key]:
+            fail(f"mesh 2x2: the graphed and eager runs differ in {key}: "
+                 f"{g[key]} against {e[key]}")
+    if min(g["shard_kernel_calls"]) <= 0 or runs["graphs"]["syncs"]:
+        fail(f"mesh 2x2, short run: shard launches "
+             f"{g['shard_kernel_calls']}, syncs {runs['graphs']['syncs']}")
+    for i, toks in enumerate(g["tokens"]):
+        if toks != main["tokens"][i][:SHARD_EAGER[1]].tolist():
+            fail(f"mesh 2x2, short run: request {i} served other tokens "
+                 f"than the flat engine")
+    tokens = sum(len(t) for t in g["tokens"])
+    out["2x2_short"] = {
+        "requests": SHARD_EAGER[0], "gen": SHARD_EAGER[1],
+        "hbm_blocks": SHARD_EAGER[2], "launches": g["launches"],
+        "shard_kernel_calls": g["shard_kernel_calls"], **{
+            mode: {"tokens_per_s": tokens / run["wall"],
+                   "wall_s": run["wall"]}
+            for mode, run in runs.items()}}
+    out["card"] = gpu_line()
+    print("sharded path: " + ", ".join(
+        f"{k} {v['tokens_per_s']:.1f} tok/s (shard launches "
+        f"{v['shard_kernel_calls']}, capture {v['capture_s']:.2f} s)"
+        for k, v in out.items() if k in ("1x1", "2x1", "2x2"))
+        + f"; 2x2 on {SHARD_EAGER[0]} requests "
+        f"{out['2x2_short']['graphs']['tokens_per_s']:.1f} tok/s graphed, "
+        f"{out['2x2_short']['eager']['tokens_per_s']:.1f} eager", flush=True)
+    print(json.dumps({"serve_sharded": out}), flush=True)
+    return out
 
 
 def megastep_turns(main: dict) -> dict:
@@ -3320,6 +3525,8 @@ def card_main(cpu: tuple) -> int:
     mark("serve")
     walls = megastep_turns(main_run)
     mark("megastep_turns")
+    sharded = serve_sharded(api, params, main_run)
+    mark("serve_sharded")
     l2_shapes: Counter = Counter()
     tenant_launches = serve_tenants(api, params, l2_shapes)
     mark("tenants")
@@ -3371,6 +3578,10 @@ def card_main(cpu: tuple) -> int:
                 row[f"launches_{path}"] = r["launches"][row["name"]]
                 row[f"shape_{path}"] = max(r["shapes"][row["name"]],
                                            key=lambda s: s[3])[:3]
+            # the graphed sharded runs, by mesh
+            row["launches_sharded"] = {
+                mesh: sharded[mesh]["launches"][row["name"]]
+                for mesh in ("1x1", "2x1", "2x2")}
     # measured at the smollm-135m prefill shape; launched per forward
     flash_row["launches"] = forward["smollm-135m"]["launches"]
     flash_row["launches_paligemma"] = forward["paligemma-3b"]["launches"]

@@ -182,6 +182,13 @@ TIER_PRESETS: dict[str, ChannelModel] = {
     "cxl": CXL_HOST,
 }
 
+#: Cross-device interconnect kinds. Collective traffic between mesh shards
+#: (``serve.shard.IciMeter``) is billed through these with the same
+#: ``offload.channel_time_us`` arithmetic as the DDR5/CXL host channels.
+INTERCONNECT_PRESETS: dict[str, ChannelModel] = {
+    "ici": ICI_LINK,
+}
+
 
 def parse_tier_spec(spec: str) -> list[tuple[str, ChannelModel]]:
     """Parse a ``kind:count,...`` channel-set spec into (kind, model) pairs.

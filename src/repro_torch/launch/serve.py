@@ -2,8 +2,9 @@
 (port of ``repro/launch/serve.py``; ``--tiers`` backs the pool's host
 side with DDR5/CXL channels, ``--faults`` injects a fault plan,
 ``--trace OUT.JSON`` exports a Perfetto trace of the measured run,
-``--snapshot-dir`` / ``--snapshot-every`` take crash-consistent snapshots
-and ``--restore`` resumes a crashed run from them).
+``--snapshot-dir`` / ``--snapshot-every`` take crash-consistent snapshots,
+``--restore`` resumes a crashed run from them and ``--mesh data,model``
+serves sharded over a device mesh).
 
 Requests arrive staggered into the ``ServeEngine`` megastep loop; the
 admission policy picks which waiting work joins the running set — LLM
@@ -18,6 +19,11 @@ reference's schema.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --batch 4 --requests 8 --prompt-len 8 --gen 16 --arrival-every 2 \
       --tenants redis,vectordb
+
+``--mesh`` needs ``data * model`` devices: the CUDA devices torch sees
+(``--devices N`` keeps the first N), one on the CPU. The port's tests
+build meshes of logical ranks that share a device with
+``launch.mesh.make_debug_mesh(model, devices=[...])``.
 
 A run killed by ``--faults crash:@S`` with ``--snapshot-dir D
 --snapshot-every N`` exits 3 when a snapshot survived (1 when none did);
@@ -46,6 +52,22 @@ from repro_torch.serve import (EngineConfig, EngineStallError, KVStoreTenant,
 from repro_torch.serve.snapshot import journal_length, newest_valid_snapshot
 
 KNOWN_TENANTS = ("redis", "vectordb")
+
+
+def _mesh_arg(value: str) -> tuple[int, int] | None:
+    """argparse type for --mesh: 'data,model' axis sizes (e.g. '2,2')."""
+    if not value:
+        return None
+    parts = value.split(",")
+    try:
+        data, model = (int(x) for x in parts)
+        if data < 1 or model < 1:
+            raise ValueError
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--mesh wants two positive axis sizes 'data,model' "
+            f"(e.g. 2,2), got {value!r}") from None
+    return data, model
 
 
 def _tenants_arg(value: str) -> list[str]:
@@ -162,6 +184,16 @@ def main() -> int:
     p.add_argument("--stall-boundaries", type=int, default=64,
                    help="consecutive zero-progress megastep boundaries "
                         "before run() raises EngineStallError")
+    p.add_argument("--mesh", type=_mesh_arg, default=None,
+                   help="serve sharded over a data,model device mesh "
+                        "(axis sizes, e.g. 2,2): batch rows and KV pool "
+                        "shards split over data ranks, decode replicated "
+                        "over model ranks with modelled ICI collective "
+                        "billing. Needs data*model devices (the CUDA "
+                        "devices torch sees; one on the CPU)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="use only the first N devices for --mesh "
+                        "(0 = however many the mesh needs)")
     p.add_argument("--trace", default=None, metavar="OUT.JSON",
                    help="enable the serve.trace observability plane on "
                         "the measured engine and export a Chrome/"
@@ -199,6 +231,23 @@ def main() -> int:
                              args.snapshot_dir):
         p.error("--restore needs --snapshot-dir and --snapshot-every "
                 "matching the crashed run")
+
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import make_debug_mesh
+        data, model = args.mesh
+        device = torch.device(args.device)
+        avail = ([torch.device("cuda", i)
+                  for i in range(torch.cuda.device_count())]
+                 if device.type == "cuda" else [device])
+        if args.devices:
+            avail = avail[:args.devices]
+        if data * model > len(avail):
+            p.error(f"--mesh {data},{model} needs {data * model} devices "
+                    f"but only {len(avail)} are available; a mesh of "
+                    f"ranks that share a device is built with "
+                    f"launch.mesh.make_debug_mesh(model, devices=[...])")
+        mesh = make_debug_mesh(model, devices=avail[:data * model])
 
     api = R.build(args.arch, smoke=not args.full, device=args.device)
     params = api.init(torch.Generator().manual_seed(0))
@@ -247,7 +296,11 @@ def main() -> int:
             run_cfg = dataclasses.replace(
                 run_cfg, faults=faults_lib.FaultInjector(
                     [], seed=args.fault_seed))
-        engine = ServeEngine(api, params, run_cfg)
+        if mesh is not None:
+            from repro_torch.serve.shard import ShardedServeEngine
+            engine = ShardedServeEngine(api, params, run_cfg, mesh=mesh)
+        else:
+            engine = ServeEngine(api, params, run_cfg)
         if not submit:
             # --restore: the workload comes from the snapshot + journal
             return engine, []
@@ -384,6 +437,12 @@ def main() -> int:
         print(f"tiered host pool ({args.tiers}): "
               f"tier_speedup={ts['tier_speedup']:.2f}x vs all-DDR5 "
               f"serial, {ts['migrations']} boundary migrations")
+    if mesh is not None:
+        ici = engine.paging_stats().get("ici", {})
+        print(f"mesh {args.mesh[0]}x{args.mesh[1]} (data x model): "
+              f"{ici.get('bytes', 0) / 1e6:.2f} MB over ICI in "
+              f"{ici.get('collectives', 0)} collectives "
+              f"({ici.get('duplex_us', 0):.1f} us modelled)")
     trace_info = None
     if args.trace:
         trace_path = engine.export_trace()
@@ -419,7 +478,8 @@ def main() -> int:
         "steps": int(engine.step_count),
         "megastep": args.megastep,
         "pipeline_depth": args.pipeline_depth,
-        "mesh": None,
+        "mesh": ({"data": args.mesh[0], "model": args.mesh[1]}
+                 if args.mesh else None),
         "host_dispatches": int(est["host_dispatches"]),
         "host_blocked": int(est["host_blocked"]),
         "wall_s": round(dt, 3),

@@ -1,6 +1,6 @@
 """Multi-tenant continuous-batching serving over the duplex-paged KV pool
 (port of ``repro.serve``: the flat and tiered pools, the fault layer, the
-tracing plane and crash-consistent snapshots; no sharding).
+tracing plane, crash-consistent snapshots and sharded serving).
 
   RequestQueue — admission via the ``core.policies`` Policy protocol; LLM
                  prefills and tenant requests (declared ``TrafficProfile``)
@@ -40,7 +40,14 @@ tracing plane and crash-consistent snapshots; no sharding).
                  consistent cuts at megastep boundaries (pipeline drained,
                  dirty HBM flushed through the billed path), a crc-framed
                  write-ahead journal, and ``ServeEngine.restore()``, which
-                 resumes a crashed run bit-exactly.
+                 resumes a crashed run bit-exactly;
+  ShardedServeEngine — the megastep loop over a ``data x model`` mesh
+                 (``launch.mesh.make_debug_mesh``) from one controller:
+                 batch rows and ``ShardedKVPool`` shards per data rank
+                 (``ShardFaultView`` routes the fault plan per shard),
+                 replicated decode per model rank, one packed readback
+                 per megastep per mesh, modelled collective traffic
+                 billed by ``IciMeter`` under ``/serve/ici/*``.
 """
 
 from repro_torch.core.faults import (FaultEvent, FaultInjector,
@@ -51,6 +58,8 @@ from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.kv_pool import PagedKVPool
 from repro_torch.serve.queue import (FAILED, Request, RequestQueue,
                                      TrafficProfile)
+from repro_torch.serve.shard import (IciMeter, ShardedKVPool,
+                                     ShardedServeEngine, ShardFaultView)
 from repro_torch.serve.snapshot import (SnapshotError, SnapshotManager,
                                         fresh_snapshot_stats)
 from repro_torch.serve.tiers import TieredHostPool
@@ -59,8 +68,9 @@ from repro_torch.serve.workloads import (KVStoreTenant, VectorSearchTenant,
                                          WorkloadAPI)
 
 __all__ = ["EngineConfig", "EngineStallError", "FAILED", "FaultEvent",
-           "FaultInjector", "KVStoreTenant", "PagedKVPool", "Request",
-           "RequestQueue", "ServeEngine", "SnapshotError",
+           "FaultInjector", "IciMeter", "KVStoreTenant", "PagedKVPool",
+           "Request", "RequestQueue", "ServeEngine", "ShardFaultView",
+           "ShardedKVPool", "ShardedServeEngine", "SnapshotError",
            "SnapshotManager", "StepGraphs", "TieredHostPool", "Tracer",
            "TrafficProfile", "VectorSearchTenant", "WorkloadAPI",
            "fresh_snapshot_stats", "parse_fault_plan", "random_plan",

@@ -385,6 +385,23 @@ def _megastep_math(api: ModelAPI, n_micro: int, n_steps: int,
     return mega
 
 
+def _device_megastep(mega, graphs, params, cache, dev, micro: tuple,
+                     paged: bool):
+    """One megastep over one set of device state: a replay of ``graphs``
+    per inner step (each step's tokens and staged slab copied out before
+    the next) when they are set, else the eager ``mega``. Returns (slot
+    state, packed readback, staged slabs or None)."""
+    if graphs is not None:
+        toks, staged = [], []
+        for m in micro:
+            tok, st = graphs.step(m)
+            toks.append(tok)
+            staged.append(st)
+        return dev, _pack(dev, toks), (staged if paged else None)
+    out = mega(params, cache, dev, micro)
+    return out if paged else (*out, None)
+
+
 class ServeEngine:
     """Continuous-batching serving engine for one ``ModelAPI``.
 
@@ -436,10 +453,7 @@ class ServeEngine:
         if self.paged:
             L, _, _, KV, hd = kv["k"].shape
             kv_dims = L * 2 * KV * hd
-            self.pool = PagedKVPool(
-                cfg.resolved_pool_blocks(), cfg.hbm_blocks,
-                (cfg.block_tokens, kv_dims), hints=self.hints,
-                tiers=cfg.tiers, faults=cfg.faults, device=self.device)
+            self.pool = self._make_pool((cfg.block_tokens, kv_dims))
             kv_bytes = float(kv_dims * 2)
         else:
             self.pool = None
@@ -509,6 +523,72 @@ class ServeEngine:
                     "cache family)")
             self._snap = SnapshotManager(cfg.snapshot_dir,
                                          cfg.snapshot_every)
+
+    # -- sharding seams (overridden by serve.shard.ShardedServeEngine) ------
+    def _make_pool(self, block_shape) -> PagedKVPool:
+        """Build the engine's KV pool; the sharded engine returns a
+        per-data-rank pool facade with the same interface instead."""
+        cfg = self.cfg
+        return PagedKVPool(
+            cfg.resolved_pool_blocks(), cfg.hbm_blocks, block_shape,
+            hints=self.hints, tiers=cfg.tiers, faults=cfg.faults,
+            device=self.device)
+
+    def _alloc_block(self, r: Request) -> list[int]:
+        """Allocate the next KV block for one request's fill. The sharded
+        engine routes this to the pool shard owning ``r.slot``."""
+        return self.pool.alloc(1)
+
+    def _stage_view(self, staged):
+        """Adapt the megastep's staged write-through slabs for the pool
+        (identity here; the sharded engine lands its data ranks' slabs on
+        the pool device, a device-to-device copy, never a host sync)."""
+        return staged
+
+    def _run_megastep(self, k: int, micro: tuple):
+        """Enqueue one K-step megastep on the device: (packed readback,
+        staged slabs or None). The sharded engine runs one per rank."""
+        self._dev, packed, staged = _device_megastep(
+            self._mega_fn(k), self.graphs, self.params, self.cache,
+            self._dev, micro, self.paged)
+        return packed, staged
+
+    def _install_rows(self, mask: np.ndarray, prompts: np.ndarray,
+                      plen: np.ndarray, mnew: np.ndarray) -> None:
+        """Admission's device writes, over the whole batch (``mask``
+        marks the admitted slots): pristine cache rows for the recycled
+        slots and the new slot state, both in place (the step graphs read
+        these tensors). The sharded engine writes each rank's band."""
+        rows = to_device(np.flatnonzero(mask).astype(np.int64), self.device)
+        for leaf, leaf0 in zip(nn.tree_leaves(self.cache),
+                               nn.tree_leaves(self._cache0), strict=True):
+            leaf[:, rows] = leaf0[:, rows]
+        dev = self.device
+        new = _admit_rows(self._dev, to_device(mask, dev),
+                          to_device(prompts, dev), to_device(plen, dev),
+                          to_device(mnew, dev))
+        for key, leaf in self._dev.items():
+            leaf.copy_(new[key])
+
+    def _device_state(self) -> tuple[dict, dict]:
+        """The slot state and the cache as whole-batch tensors, for a
+        snapshot to capture and a restore to write: the engine's own here;
+        the sharded engine gathers copies of its data bands."""
+        return self._dev, self.cache
+
+    def _place_device_state(self, dev: dict, cache: dict) -> None:
+        """Make ``dev``/``cache`` (from ``_device_state()``, rewritten by
+        a snapshot restore) the engine's device state. Here they are the
+        engine's own tensors, already written in place; the sharded
+        engine copies each data band into every rank that holds it."""
+
+    def _snapshot_extra_state(self) -> dict:
+        """Engine-subclass state for the snapshot tree (the sharded
+        engine's ICI meter totals). Must be JSON-serializable."""
+        return {}
+
+    def _load_extra_state(self, extra: dict) -> None:
+        """Inverse of ``_snapshot_extra_state``."""
 
     # -- tenants -----------------------------------------------------------
     def add_tenant(self, workload):
@@ -590,16 +670,6 @@ class ServeEngine:
         """CUDA graphs this engine holds: at most prefill_chunk + 1."""
         return len(self.graphs) if self.graphs is not None else 0
 
-    def _graph_megastep(self, micro: tuple):
-        """The megastep as one engine step a replay: (packed, staged), each
-        step's tokens and staged slab copied out before the next."""
-        toks, staged = [], []
-        for m in micro:
-            tok, st = self.graphs.step(m)
-            toks.append(tok)
-            staged.append(st)
-        return _pack(self._dev, toks), (staged if self.paged else None)
-
     def step(self) -> dict:
         """One engine step — the K=1 megastep."""
         return self.megastep(1)
@@ -666,15 +736,8 @@ class ServeEngine:
         now, k, live, traj = rec.now, rec.k, rec.live, rec.traj
         staged = None
         if live:
-            if self.graphs is not None:
-                packed, staged = self._graph_megastep(rec.micro)
-            else:
-                out = self._mega_fn(k)(self.params, self.cache, self._dev,
-                                       rec.micro)
-                if self.paged:
-                    self._dev, packed, staged = out
-                else:
-                    self._dev, packed = out
+            packed, staged = self._run_megastep(k, rec.micro)
+            staged = self._stage_view(staged)
             rec.packed = _Readback(packed)
             self.host_dispatches += 1
             self.decode_steps += sum(rec.micro)
@@ -1210,18 +1273,7 @@ class ServeEngine:
             prompts[slot, :req.prompt_len] = req.prompt
             plen[slot] = req.prompt_len
             mnew[slot] = req.max_new_tokens
-        # recycled slots get pristine cache rows, in place
-        rows = to_device(np.flatnonzero(mask).astype(np.int64), self.device)
-        for leaf, leaf0 in zip(nn.tree_leaves(self.cache),
-                               nn.tree_leaves(self._cache0), strict=True):
-            leaf[:, rows] = leaf0[:, rows]
-        # the slot state in place too: the graphs read these tensors
-        dev = self.device
-        new = _admit_rows(self._dev, to_device(mask, dev),
-                          to_device(prompts, dev), to_device(plen, dev),
-                          to_device(mnew, dev))
-        for key, leaf in self._dev.items():
-            leaf.copy_(new[key])
+        self._install_rows(mask, prompts, plen, mnew)
         return len(admitted)
 
     # -- batched KV paging (one transaction per inner step) -----------------
@@ -1243,7 +1295,7 @@ class ServeEngine:
             n_filled = st.written // bt
             while len(r.blocks) < n_filled:
                 bi = len(r.blocks)
-                r.blocks.extend(self.pool.alloc(1))
+                r.blocks.extend(self._alloc_block(r))
                 journal.append(("alloc", r, [r.blocks[bi]]))
                 new_pairs.append((r, bi, bi - fill_base))
 

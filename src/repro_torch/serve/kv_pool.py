@@ -647,8 +647,18 @@ class PagedKVPool:
             raise ValueError("write to non-resident block; call step() first")
         return np.flatnonzero(valid), slots, real
 
+    def read(self, blocks) -> torch.Tensor:
+        """Gather resident blocks: (n, tokens, kv_dims) bf16, touching
+        their LRU clock."""
+        blocks = np.asarray(blocks, np.int32)
+        slots = self.slot_of[blocks]
+        if (slots < 0).any():
+            raise ValueError("read of non-resident block; call step() first")
+        self._touch(blocks)
+        return self.hbm[self._idx(slots)]
+
     # -- host-tier migrations (megastep boundaries) -------------------------
-    def migrate_tiers(self) -> dict:
+    def migrate_tiers(self, max_moves: int | None = None) -> dict:
         """Rebalance host-tier placement at a megastep boundary.
 
         Planning is pure host metadata (the hotness clock ``last_use``,
@@ -659,12 +669,15 @@ class PagedKVPool:
         just closed); the half-duplex legs' modelled time lands in
         ``stats["migrate_us"]``. Data moves verbatim (quantized rows +
         scales), so served results are bit-exact whether or not
-        migrations run.
+        migrations run. ``max_moves`` caps the plan below
+        ``MIGRATE_MAX``.
         """
         if not self.tiered:
             return {"migrations": 0}
+        width = MIGRATE_MAX if max_moves is None \
+            else min(int(max_moves), MIGRATE_MAX)
         plan = self.host.plan_migrations(self.last_use, self._has_host,
-                                         MIGRATE_MAX)
+                                         width)
         if len(plan):
             try:
                 self._move_rows(plan.src_slots, plan.dst_slots)

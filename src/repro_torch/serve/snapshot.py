@@ -301,21 +301,21 @@ def _capture(engine) -> dict:
 
     leaves, prev_util = engine.queue.snapshot_state()
     fx = engine._fx
+    dev, cache = engine._device_state()
     tree = {
-        "dev": dict(engine._dev),
+        "dev": dict(dev),
         # the cache dict's leaves in sorted key order, as the reference's
         # pytree flatten lists them
-        "cache": {f"l{i}": engine.cache[k]
-                  for i, k in enumerate(sorted(engine.cache))},
+        "cache": {f"l{i}": cache[k] for i, k in enumerate(sorted(cache))},
         "pool": engine.pool.snapshot_state(),
         "queue": {
             "policy": {f"l{i}": leaf for i, leaf in enumerate(leaves)},
             "meta": {"prev_util": float(prev_util)},
         },
         "requests": requests,
-        # the reference's sharded-engine state: a single-device engine has
-        # none, but the reference's restore reads the key
-        "extra": {"meta": {}},
+        # the sharded engine's state (its ICI meter); a single-device
+        # engine has none, but the reference's restore reads the key
+        "extra": {"meta": engine._snapshot_extra_state()},
         "meta": {
             "step_count": int(engine.step_count),
             "megasteps": int(engine.megasteps),
@@ -369,18 +369,22 @@ def _install(engine, tree: dict) -> None:
     engine.queue.load_state(leaves, q["meta"]["prev_util"], wait_slots)
 
     # device-side state: the int32 slot mirrors and the KV cache, copied
-    # into the engine's tensors (raw dtypes as captured)
-    if set(tree["dev"]) != set(engine._dev):
+    # into the engine's tensors (raw dtypes as captured); a sharded engine
+    # hands out whole-batch copies and places them on its ranks after
+    dev, cache = engine._device_state()
+    if set(tree["dev"]) != set(dev):
         raise SnapshotError("slot-state arity mismatch — wrong engine?")
-    for k, leaf in engine._dev.items():
+    for k, leaf in dev.items():
         _copy_into(leaf, tree["dev"][k], f"slot state {k}")
-    keys = sorted(engine.cache)
+    keys = sorted(cache)
     if len(tree["cache"]) != len(keys):
         raise SnapshotError("cache arity mismatch — wrong model/config?")
     for i, k in enumerate(keys):
-        _copy_into(engine.cache[k], tree["cache"][f"l{i}"], f"cache {k}")
+        _copy_into(cache[k], tree["cache"][f"l{i}"], f"cache {k}")
+    engine._place_device_state(dev, cache)
 
     engine.pool.load_state(tree["pool"])
+    engine._load_extra_state(tree["extra"]["meta"])
 
     engine.step_count = int(meta["step_count"])
     engine.megasteps = int(meta["megasteps"])

@@ -5,8 +5,10 @@ device the engine's ``dispatch`` span covers the enqueue of its step
 graphs' replays, not their execution on the card; no hook reads a device
 tensor, and a traced engine replays the same graphs as an untraced one.
 The ``snapshot_cut`` / ``restore`` spans cover a cut's drain, flush and
-write, and a restore's load and journal scan. The ICI tracks are named
-here but not emitted: the port has no sharded engine.
+write, and a restore's load and journal scan. A sharded engine
+(``serve/shard.py``) emits its collectives on ``ici:model`` and
+``ici:data`` tracks and its pool shards' channels as ``shard<s>/...``
+tracks, on the same modelled clock.
 
 The serving stack's observability layer (README "Observability"). One
 ``Tracer`` per engine, ``None`` when disabled — every hot-path hook in

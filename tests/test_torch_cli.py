@@ -15,7 +15,9 @@ host-clock span times) and export a Perfetto file. Left
 out of the comparison: the wall clock (``wall_s``, ``tok_s``) and the
 port's ``device`` field, which the reference's report
 does not have. The tokens themselves are not in the report (each CLI
-draws its own random weights)."""
+draws its own random weights). ``--mesh 1,1`` serves sharded in both and
+reports the same; a mesh larger than the devices and a malformed one are
+refused alike."""
 
 import contextlib
 import io
@@ -297,3 +299,55 @@ def test_cli_moe_archs_equal_reference(arch, extra, monkeypatch):
         assert got["paging"]["tiers"]["tiered"]
     if extra[:1] == ["--faults"]:
         assert got["faults"]["injected"] == 1
+
+
+@pytest.mark.parametrize("extra", [[], ["--tiers", "ddr5:2,cxl:2",
+                                        "--tenants", "redis"]],
+                         ids=["alone", "tiers-tenant"])
+def test_cli_mesh_equals_reference(extra, monkeypatch):
+    """``--mesh 1,1`` serves through ``ShardedServeEngine`` in both CLIs:
+    the same report field for field (``mesh``, and the paging stats'
+    ``mesh``, ``ici`` and per-shard tier stats), and the ``mesh`` line."""
+    argv = ["serve", "--gen", "8", "--no-warmup", "--mesh", "1,1", *extra]
+    reports, lines = [], []
+    for main, side in ((jserve.main, []), (tserve.main, ["--device", "cpu"])):
+        monkeypatch.setattr(sys, "argv", argv + side)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main() == 0
+        text = out.getvalue().strip().splitlines()
+        reports.append(json.loads(text[-1]))
+        lines.append([t for t in text if t.startswith("mesh ")])
+    want, got = reports
+    assert set(got) - UNCOMPARED == set(want) - UNCOMPARED
+    for key in set(want) - UNCOMPARED:
+        assert got[key] == want[key], key
+    assert got["mesh"] == got["paging"]["mesh"] == {"data": 1, "model": 1}
+    assert got["paging"]["ici"]["bytes"] == 0.0
+    assert lines[1] == lines[0] == [
+        "mesh 1x1 (data x model): 0.00 MB over ICI in 0 collectives "
+        "(0.0 us modelled)"]
+
+
+@pytest.mark.parametrize("mesh", ["2,2", "0,1", "2"])
+def test_cli_mesh_errors_equal_reference(mesh, monkeypatch, capsys):
+    """A mesh larger than the devices exits 2 in both CLIs (``--devices
+    1``: one device, as the port counts on the CPU, whatever number of
+    JAX host devices this process was started with); a malformed one is
+    refused at parse time with the same message."""
+    errs = []
+    for main, extra in ((jserve.main, []), (tserve.main, ["--device", "cpu"])):
+        monkeypatch.setattr(sys, "argv", ["serve", "--mesh", mesh,
+                                          "--devices", "1", *extra])
+        with pytest.raises(SystemExit) as e:
+            main()
+        assert e.value.code == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    if mesh == "2,2":
+        # the remedy differs: the reference forces host devices, the port
+        # builds ranks that share a device
+        head = "--mesh 2,2 needs 4 devices but only 1 are available"
+        assert all(head in e for e in errs)
+    else:
+        assert errs[1] == errs[0]
+        assert "two positive axis sizes" in errs[1]

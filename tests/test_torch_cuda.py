@@ -804,3 +804,65 @@ def test_crash_restore_on_the_card(cuda, tmp_path):
             a, b = a.view(torch.int16), b.view(torch.int16)
         assert torch.equal(a, b)
     eng.pool.check_invariants()
+
+
+def test_sharded_engine_on_the_card(cuda, monkeypatch):
+    """SMOKE smollm-135m on a (2, 2) mesh of logical ranks on the card,
+    each rank on its own step graphs, against the flat graphed engine:
+    the same tokens and admission/done steps; the graphed sharded run
+    equals the eager one in stats, paging stats (``ici`` among them) and
+    kernel launches; no host sync but the readback, one per dispatched
+    megastep; every rank within prefill_chunk + 1 graphs; ICI bytes on
+    both axes; the pool shards' invariants hold."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serve import ServeEngine, ShardedServeEngine
+    from repro_torch.serve import engine as engine_mod
+    api, params, cfg, prompts = _graph_case("paged")
+    # 4 HBM blocks: a shard of two rows pages both ways (with 6 it never
+    # evicts: each shard gets the config's whole hbm_blocks)
+    cfg = dataclasses.replace(cfg, max_batch=4, hbm_blocks=4)
+    waits = [0]
+    real = engine_mod._Readback.wait
+
+    def counted(self):
+        waits[0] += 1
+        return real(self)
+
+    monkeypatch.setattr(engine_mod._Readback, "wait", counted)
+
+    def run(eng):
+        rids = [eng.submit(p, 9, arrival_step=2 * i).rid
+                for i, p in enumerate(prompts)]
+        ds.reset_launches()
+        waits[0] = 0
+        with sync_watch() as syncs:
+            outs = eng.run(max_steps=300)
+        torch.cuda.synchronize()
+        return dict(tokens=[outs[r].tolist() for r in rids],
+                    timing=[(eng.completed[r].admitted_step,
+                             eng.completed[r].done_step) for r in rids],
+                    stats=eng.stats(), paging=eng.paging_stats(),
+                    launches=dict(ds.LAUNCHES), syncs=dict(syncs),
+                    waits=waits[0])
+
+    flat = run(ServeEngine(api, params, cfg))
+    mesh = make_debug_mesh(2, devices=[torch.device("cuda", 0)] * 4)
+    graphed_eng = ShardedServeEngine(api, params, cfg, mesh=mesh)
+    graphed = run(graphed_eng)
+    eager = run(ShardedServeEngine(api, params, cfg, mesh=mesh,
+                                   _graphs=False))
+    assert graphed["tokens"] == flat["tokens"]
+    assert graphed["timing"] == flat["timing"]
+    for key in ("tokens", "timing", "stats", "paging", "launches", "waits"):
+        assert eager[key] == graphed[key], key
+    assert graphed["syncs"] == {}
+    assert graphed["waits"] == graphed["stats"]["host_dispatches"]
+    assert all(0 < len(rk.graphs) <= cfg.prefill_chunk + 1
+               for rk in graphed_eng.ranks)
+    paths = graphed["paging"]["by_path"]
+    assert paths["/serve/ici/model"]["bytes"] > 0
+    assert paths["/serve/ici/data"]["bytes"] > 0
+    assert graphed["launches"]["duplex_kv_stream"] > 0
+    graphed_eng.pool.check_invariants()
