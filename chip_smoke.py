@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each kernel against its
-plain PyTorch version on the card (``flash_attention`` also at head dims
+plain PyTorch version on the card (``wkv6``'s backward too;
+``flash_attention`` also at head dims
 80, 112 and 128, timed at a stablelm-3b, a kimi-k2, a llama3.2-3b and a
 windowed mixtral-8x7b prefill shape; the stream kernels also at the MoE
 paths' row widths), records beside the short kernels the
@@ -117,6 +118,20 @@ after:
     launch ``flash_attention`` once per layer (head dims 128, 128, 80)
     with logits within ``LOGITS_ATOL`` of the plain forward's and a
     control beyond it;
+  * the training path (before the snapshot phase): smollm-135m FULL
+    trained by ``Trainer`` (device AdamW, 20 steps of 8 x 2048 tokens:
+    every loss finite, the loss falling, no kernel launched); its host
+    optimizer (moments pinned in host memory, streamed leaf by leaf)
+    against device AdamW in f32, parameters within 1e-5, with the
+    modelled link report beside the measured round trip; rwkv6-7b at
+    full width cut to ``RWKV_TRAIN_LAYERS`` layers, trained with the host
+    optimizer through the ``wkv6`` forward and backward kernels (each
+    once per layer a step; every leaf, and each of ``mu``'s five rows,
+    with a finite non-zero gradient); and its gradient at two layers in
+    f32 against autograd through the plain loop. The ``wkv6_backward``
+    kernel is held against ``ref.wkv6_backward`` beside the forward's
+    checks (hs 16, 32, 128, a ragged S, the training shape, and a control
+    that must fail);
   * the sharded path (right after the main path): the main path's
     requests on ``ShardedServeEngine`` over (1, 1), (2, 1) and (2, 2)
     meshes of logical ranks on the card, each rank on its own step
@@ -299,6 +314,10 @@ REPLACES = {
     "l2_distance": "src/repro/kernels/vector_distance.py:50",
     "flash_attention": "src/repro/kernels/flash_attention.py:123",
     "wkv6": "src/repro/kernels/rwkv6_scan.py:70",
+    # the gradient of that kernel's function; the Pallas wkv6 has no
+    # backward (the reference trains through its plain wkv_scan,
+    # src/repro/models/rwkv6.py:100, which jax.grad differentiates)
+    "wkv6_backward": "src/repro/kernels/rwkv6_scan.py:70",
 }
 
 # flash_attention against ref.attention on the card, at the reference's
@@ -421,6 +440,40 @@ WKV_CHECKS = [
     (2, 4096, 64, 64, True),
 ]
 WKV_TOL = 1e-4
+# the wkv6 backward against ref.wkv6_backward on the card, each gradient
+# within WKV_BWD_TOL of its largest magnitude: (B, S, H, hs, draw w and u
+# as the model does). hs 16, 32 and 128, a ragged S (1000 is no multiple
+# of the kernel's 16-step chunk), and last the path shape: the rwkv6-7b
+# training shape (B, S) = RWKV_TRAIN, 64 heads of 64
+WKV_BWD_CHECKS = [
+    (2, 64, 2, 16, False), (1, 128, 3, 32, False), (1, 96, 2, 128, True),
+    (2, 1000, 3, 64, True), (2, 4096, 64, 64, True),
+]
+WKV_BWD_TOL = 1e-4
+# the training path. smollm-135m FULL: Trainer steps at a global batch of
+# 8 sequences of 2048 tokens (its published context), warm-up 2, peak lr
+# 1e-3 (the reference CLI's 3e-4 moves a random model's loss too little
+# in 20 steps to gate on); host against device AdamW for
+# TRAIN_PARITY_STEPS steps each
+SMOLLM_TRAIN = dict(global_batch=8, seq_len=2048, steps=20)
+SMOLLM_WARMUP, SMOLLM_LR = 2, 1e-3
+TRAIN_PARITY_STEPS = 3
+# rwkv6-7b at full width (d_model 4096, 64 heads of 64, vocab 65536) with
+# the host optimizer: cut to RWKV_TRAIN_LAYERS of its 32 layers at (B, S)
+# = RWKV_TRAIN (its context), for RWKV_TRAIN_STEPS steps. The peak was
+# 49.0 GB at 8 layers (PERF.md), ~5 GB of it a layer (autograd
+# residuals at B*S = 8192 tokens): 12 layers take ~69 GB of the 80, 13
+# would take ~74; the moments of 12 layers are 25 GB of pinned host RAM
+RWKV_TRAIN = (2, 4096)
+RWKV_TRAIN_LAYERS = 12
+RWKV_TRAIN_STEPS = 3
+# rwkv6-7b's gradient through the kernels against the plain loop's
+# (autograd through wkv_scan), f32 weights, TF32 off, each leaf within
+# RWKV_GRAD_TOL of its largest magnitude: FULL width at RWKV_GRAD_LAYERS
+# layers, (B, S) = RWKV_GRAD
+RWKV_GRAD = (1, 512)
+RWKV_GRAD_LAYERS = 2
+RWKV_GRAD_TOL = 1e-3
 # the RWKV forward path: rwkv6-7b FULL at (batch, sequence); 4096 is the
 # published context length of the RWKV-6 World models
 RWKV_FORWARD = (2, 4096)
@@ -493,7 +546,8 @@ MOE_KV_DIMS = {arch: layers * 2 * dims[3] * (dims[1] // dims[2])
 # bounds so that two blocks fit an SM (duplex_stream.WAVE_BLOCKS)
 NO_SPILL = {"flash_kernel_tc<64>", "flash_kernel_tc<80>",
             "flash_kernel_tc<112>", "flash_kernel_tc<128>",
-            "flash_kernel_tc<256>", "wkv6_kernel<64>", "duplex_kernel<1>",
+            "flash_kernel_tc<256>", "wkv6_kernel<64>",
+            "wkv6_backward_kernel<64>", "duplex_kernel<1>",
             "quant_kernel<1>", "dequant_kernel<1>"}
 # an empty kernel, launched at a kernel's grid, block, cluster and dynamic
 # shared memory: its device time is the floor under any one launch of
@@ -1435,6 +1489,398 @@ def rwkv_forward_phase(B: int, S: int):
            "loss_rel_diff": rel}
     print(json.dumps({"rwkv_forward_phase": out}), flush=True)
     return api, params, out
+
+
+def wkv_grad_inputs(B, S, H, hs, seed: int, model_like: bool):
+    """``wkv_inputs`` and an upstream gradient dout N(0, 1), on the card."""
+    x = wkv_inputs(B, S, H, hs, seed, model_like)
+    g = torch.Generator().manual_seed(seed + 1)
+    return (*x, torch.randn((B, S, H, hs), generator=g).cuda())
+
+
+def grad_shares(got, want) -> list:
+    """Per gradient (dr, dk, dv, dw, du): the largest absolute difference
+    over the largest magnitude of ``want``'s."""
+    out = []
+    for a, b in zip(got, want):
+        if a.shape != b.shape or a.dtype != torch.float32:
+            fail(f"wkv6_backward returned {tuple(a.shape)} {a.dtype}, want "
+                 f"{tuple(b.shape)} f32")
+        out.append((a - b).abs().max().item()
+                   / max(b.abs().max().item(), 1e-30))
+    return out
+
+
+def check_wkv6_backward() -> dict:
+    """The wkv6 backward kernel against ref.wkv6_backward at every shape
+    of WKV_BWD_CHECKS, each of dr, dk, dv, dw, du within WKV_BWD_TOL of
+    that gradient's largest magnitude; at the path shape a control, the
+    kernel's gradients for dout shifted by one step, must exceed it.
+    Returns the path shape's shares and the control's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for i, (B, S, H, hs, model_like) in enumerate(WKV_BWD_CHECKS):
+        x = wkv_grad_inputs(B, S, H, hs, seed=400 + i,
+                            model_like=model_like)
+        want = ref.wkv6_backward(*x)
+        shares = grad_shares(rs.wkv6_backward(*x), want)
+        torch.cuda.synchronize()
+        where = f"B,S,H,hs = {B},{S},{H},{hs}"
+        if max(shares) > WKV_BWD_TOL:
+            fail(f"wkv6_backward differs from the plain version at {where}: "
+                 f"max abs / max |grad| of dr, dk, dv, dw, du {shares}")
+        print(f"wkv6_backward matches the plain version at {where} "
+              f"(max abs / max |grad|: {[f'{e:.3g}' for e in shares]})",
+              flush=True)
+    shifted = torch.roll(x[5], 1, dims=1)
+    control = grad_shares(rs.wkv6_backward(*x[:5], shifted), want)
+    if max(control) <= WKV_BWD_TOL:
+        fail(f"the control (dout shifted one step) passed the wkv6_backward "
+             f"gate: {control}")
+    print(f"wkv6_backward control (dout shifted one step): "
+          f"{[f'{e:.3g}' for e in control]}", flush=True)
+    return {"shares": shares, "control_shares": control}
+
+
+def measure_wkv6_backward(shape, checked: dict) -> dict:
+    """Time the wkv6 backward kernel (its call: the kernel and the sum of
+    du's partials over b) and its plain version at (B, S, H, hs) with the
+    model's w and u, as ``measure_wkv6`` times the forward. Bound: r, k,
+    v, w, dout read and dr, dk, dv, dw written once (and u, du) against
+    3.35 TB/s, and the fewest f32 operations the function needs, 14 hs^2
+    per (b, t, h) (the state recomputed, 3; dout*S, G*v, G*k and G*S with
+    their sums, 8; the G update, 3) plus 16 hs (the bonus terms and du),
+    against 67 TFLOP/s on CUDA cores. The design's own count, 17 hs^2 (pass
+    2 recomputes each chunk's states again), is printed beside it. No
+    single PyTorch call computes it: no library time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rs
+    B, S, H, hs = shape
+    x = wkv_grad_inputs(B, S, H, hs, seed=98, model_like=True)
+    fn = lambda: rs.wkv6_backward(*x)
+    plain = lambda: ref.wkv6_backward(*x)
+    err = max((a - b).abs().max().item() for a, b in zip(fn(), plain()))
+    n = B * S * H
+    flops = (14 * hs * hs + 16 * hs) * n
+    design_flops = (17 * hs * hs + 16 * hs) * n
+    nbytes = 4 * (9 * n * hs + 2 * H * hs)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    t_design = design_flops / FP32_OPS_PER_S * 1e3
+    ms, per_call, ev = median(paired_profile, fn, iters=5,
+                              per_call={"wkv6_backward_kernel": 1})
+    plain_ms = device_profile(plain, iters=1, warmup=0)[0]
+    print(f"wkv6_backward at {shape}: device ms (profiler) {ms:.4f}, stream "
+          f"ms (CUDA events, stream held) {ev:.4f}, plain {plain_ms:.4f}, "
+          f"bound {bound:.4f} ({t_bytes:.4f} by bytes, {t_ops:.4f} by "
+          f"operations; the design's operations {t_design:.4f})",
+          flush=True)
+    if ms < bound or abs(ms - ev) > FLASH_EVENT_SHARE * ev:
+        fail(f"wkv6_backward at {shape}: {ms} ms by the profiler is below "
+             f"its bound {bound} ms or more than {FLASH_EVENT_SHARE:.0%} off "
+             f"its stream time {ev} ms")
+    return {"name": "wkv6_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+            "replaces": REPLACES["wkv6_backward"], "shape": list(shape),
+            "max_abs_err": err, "max_share_of_max_grad": max(
+                checked["shares"]), "control_share": max(
+                checked["control_shares"]),
+            "ms": ms, "plain_ms": plain_ms, "event_ms": ev,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flop": flops, "design_flop": design_flops, "bytes": nbytes,
+            "device_ops_per_call": per_call, "library_ms": None}
+
+
+def host_ram_bytes() -> dict:
+    """The machine's total and available RAM (``/proc/meminfo``)."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+def train_batch(api, B: int, S: int, seed: int) -> dict:
+    """Batch ``seed`` of the port's data pipeline on the card."""
+    from repro_torch.data import DataConfig, device_batch, make_batch
+    cfg = DataConfig(vocab=api.cfg.vocab, seq_len=S, global_batch=B)
+    return device_batch(make_batch(cfg, seed), None, "cuda")
+
+
+def smollm_train_phase() -> dict:
+    """The training path: smollm-135m FULL, device AdamW, ``Trainer`` for
+    SMOLLM_TRAIN (launch counters set to 0 just before, read just after).
+    Gates: every loss finite, the mean of the last 5 below the mean of
+    the first 5, no kernel launched (the loss runs the plain attention,
+    as the reference's). Records the step wall ms (median after the
+    first), tokens/s, one step's device ms and operations (profiled as it
+    comes) and the peak memory."""
+    from repro_torch.models import registry
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+    api = registry.build("smollm-135m", smoke=False, device="cuda")
+    cfg = TrainConfig(**SMOLLM_TRAIN, optim=AdamWConfig(
+        peak_lr=SMOLLM_LR, warmup_steps=SMOLLM_WARMUP,
+        total_steps=SMOLLM_TRAIN["steps"]))
+    tr = Trainer(api, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    params, opt, hist = tr.run()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)):
+        fail(f"smollm-135m training: a loss is not finite: {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        fail(f"smollm-135m training: the loss did not fall: {losses}")
+    if any(launches.values()):
+        fail(f"smollm-135m training launched kernels: {launches}")
+    batch = train_batch(api, cfg.global_batch, cfg.seq_len, 0)
+    ops, dev_ms = profile_once(lambda: tr._one_step(params, opt, batch))
+    step_s = float(np.median([h["sec"] for h in hist[1:]]))
+    tokens = cfg.global_batch * cfg.seq_len
+    out = {"arch": "smollm-135m", "batch": cfg.global_batch,
+           "seq": cfg.seq_len, "steps": cfg.steps, "losses": losses,
+           "first_step_ms": hist[0]["sec"] * 1e3,
+           "step_wall_ms_median": step_s * 1e3,
+           "tokens_per_s": tokens / step_s, "step_device_ms": dev_ms,
+           "step_device_ops": ops, "peak_gb": peak / 1e9,
+           "launches": launches, "card": gpu_line()}
+    print(json.dumps({"train_smollm": out}), flush=True)
+    return out
+
+
+def smollm_host_vs_device_phase() -> dict:
+    """smollm-135m FULL with f32 weights (in bf16 a parameter within
+    2e-10 of a bf16 rounding midpoint flips by one bf16 ulp, ~2.4e-4, and
+    135 M parameters have ~100 of them) trained TRAIN_PARITY_STEPS steps
+    by device AdamW and by ``HostOffloadAdamW`` (moments pinned in host
+    memory, each leaf's copied to the card and back every step), grads in
+    f32: every parameter within 1e-5 (the reference's bound). Records the
+    host optimizer's modelled link report beside the measured wall time
+    of its moments' round trip."""
+    from repro_torch.models import layers as nn
+    from repro_torch.models import registry
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = registry.build("smollm-135m", smoke=False, device="cuda")
+    api = registry._lm_api("smollm-135m", dataclasses.replace(
+        base.cfg, dtype=torch.float32), "cuda")
+    opt = AdamWConfig(peak_lr=SMOLLM_LR, warmup_steps=1,
+                      total_steps=TRAIN_PARITY_STEPS,
+                      grad_dtype=torch.float32)
+    runs = {}
+    for place in ("device", "host"):
+        tr = Trainer(api, TrainConfig(
+            seq_len=SMOLLM_TRAIN["seq_len"],
+            global_batch=SMOLLM_TRAIN["global_batch"],
+            steps=TRAIN_PARITY_STEPS, optimizer_placement=place, optim=opt))
+        reset_all_launches()
+        params, _, hist = tr.run()
+        if any(all_launches().values()):
+            fail(f"smollm-135m {place} AdamW launched kernels")
+        runs[place] = (tr, params, hist)
+    diff = max((a - b).abs().max().item() for a, b in zip(
+        nn.tree_leaves(runs["device"][1]), nn.tree_leaves(runs["host"][1])))
+    if not diff <= 1e-5:
+        fail(f"smollm-135m: host and device AdamW parameters differ by "
+             f"{diff} > 1e-5")
+    rep = dict(runs["host"][0].host_opt.last_transfer_report)
+    both_ways = 2 * rep["moment_bytes"]
+    out = {"max_param_diff": diff, "steps": TRAIN_PARITY_STEPS,
+           "report": rep,
+           "measured_round_trip_ms": rep["measured_us"] / 1e3,
+           "modelled_duplex_ms": rep["duplex_us"] / 1e3,
+           "modelled_serial_ms": rep["serial_us"] / 1e3,
+           "measured_gb_per_s_both_ways": both_ways / rep["measured_us"]
+           / 1e3,
+           "step_wall_ms": {place: float(np.median(
+               [h["sec"] for h in runs[place][2][1:]])) * 1e3
+               for place in runs},
+           "card": gpu_line()}
+    print(json.dumps({"train_host_vs_device": out}), flush=True)
+    return out
+
+
+def rwkv_model(layers: int, dtype=torch.bfloat16):
+    """rwkv6-7b's FULL widths cut to ``layers`` layers, on the card."""
+    from repro_torch.models import registry
+    api = registry.build("rwkv6-7b", smoke=False, device="cuda")
+    cfg = api.cfg
+    if (cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab,
+            cfg.head_size) != (32, 4096, 14336, 65536, 64):
+        fail(f"not the full-width config: {cfg}")
+    cfg = dataclasses.replace(cfg, num_layers=layers, dtype=dtype)
+    return registry._rwkv_api("rwkv6-7b", cfg, "cuda")
+
+
+def leaf_paths(tree) -> list:
+    """(``/``-joined path, leaf) of a nested dict, keys sorted
+    (``tree_leaves``'s order)."""
+    from repro_torch.checkpoint.sharded import _leaf_paths
+    return list(zip(*_leaf_paths(tree)))
+
+
+def grad_leaf_check(grads, what: str) -> dict:
+    """Every leaf of ``grads`` finite and not all zero, and each of the
+    time-mix ``mu``'s five rows (r, k, v, w, g) too: the gradient the
+    recurrence passes upstream (a kernel outside autograd leaves the
+    four rows feeding r, k, v, w at zero and wr, wk, wv, w_a, w_b, w0, u
+    with none)."""
+    paths = leaf_paths(grads)
+    for path, g in paths:
+        if not torch.isfinite(g.float()).all():
+            fail(f"{what}: the gradient of {path} is not finite")
+        if not g.abs().max() > 0:
+            fail(f"{what}: the gradient of {path} is all zero")
+    mu = grads["layers"]["tm"]["mu"].float().abs().amax(dim=(0, 2))
+    if not (mu > 0).all():
+        fail(f"{what}: a row of mu has no gradient: {mu.tolist()}")
+    return {"leaves": len(paths), "mu_rows_max_abs": mu.tolist(),
+            "min_leaf_max_abs": min(g.abs().max().item()
+                                    for _, g in paths)}
+
+
+def rwkv_train_phase() -> dict:
+    """rwkv6-7b at full width, RWKV_TRAIN_LAYERS of its 32 layers, trained
+    RWKV_TRAIN_STEPS steps by ``Trainer`` with the host optimizer at
+    (B, S) = RWKV_TRAIN: the recurrence through the wkv6 forward and
+    backward kernels. Gates: each step launches wkv6 and wkv6_backward
+    once per layer; the first step's gradient reaches every leaf, finite
+    and not all zero, and each of mu's five rows; every loss finite. The
+    host RAM is checked before the moments (8 bytes a parameter) are
+    pinned."""
+    from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.models import layers as nn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+    B, S = RWKV_TRAIN
+    L = RWKV_TRAIN_LAYERS
+    api = rwkv_model(L)
+    ram = host_ram_bytes()
+    moments = 8 * api.cfg.param_count()
+    if moments > 0.6 * ram["MemAvailable"]:
+        fail(f"rwkv6-7b at {L} layers: its moments take {moments / 1e9:.1f} "
+             f"GB of the host's {ram['MemAvailable'] / 1e9:.1f} GB available")
+    tr = Trainer(api, TrainConfig(
+        seq_len=S, global_batch=B, steps=RWKV_TRAIN_STEPS,
+        optimizer_placement="host",
+        optim=AdamWConfig(warmup_steps=1, total_steps=RWKV_TRAIN_STEPS)))
+    per_step, checked = [], {}
+    real = tr._grads
+
+    def grads_spy(params, batch):
+        before = dict(rs.LAUNCHES)
+        out = real(params, batch)
+        torch.cuda.synchronize()
+        per_step.append({k: rs.LAUNCHES[k] - before[k] for k in before})
+        if not checked:
+            checked.update(grad_leaf_check(out[2], "rwkv6-7b training"))
+        return out
+
+    tr._grads = grads_spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = tr.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_all_launches()
+    params, opt, hist = tr.run(params, opt)
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"wkv6": L, "wkv6_backward": L}
+    if per_step != [want] * RWKV_TRAIN_STEPS:
+        fail(f"rwkv6-7b training: wkv6 launches per step {per_step}, want "
+             f"{want} each step")
+    others = {k: n for k, n in launches.items() if k not in want}
+    if any(others.values()):
+        fail(f"rwkv6-7b training launched other kernels: {others}")
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)):
+        fail(f"rwkv6-7b training: a loss is not finite: {losses}")
+    rep = dict(tr.host_opt.last_transfer_report)
+    step_s = float(np.median([h["sec"] for h in hist[1:]]))
+    out = {"arch": "rwkv6-7b", "reduced": {"num_layers": [32, L]},
+           "batch": B, "seq": S, "steps": RWKV_TRAIN_STEPS,
+           "param_count": api.cfg.param_count(),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in nn.tree_leaves(params)),
+           "host_ram": ram, "init_s": init_s, "losses": losses,
+           "launches": launches, "launches_per_step": per_step[0],
+           "grads": checked, "step_wall_ms": [h["sec"] * 1e3 for h in hist],
+           "tokens_per_s": B * S / step_s, "peak_gb": peak / 1e9,
+           "report": rep, "measured_round_trip_ms": rep["measured_us"] / 1e3,
+           "card": gpu_line()}
+    print(json.dumps({"train_rwkv": out}), flush=True)
+    del tr, params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def rwkv_grad_phase() -> dict:
+    """rwkv6-7b's gradient at full width, RWKV_GRAD_LAYERS layers, f32
+    weights, TF32 off, at (B, S) = RWKV_GRAD: through the wkv6 kernels
+    against autograd through the plain loop (``use_kernel=False``), each
+    leaf within RWKV_GRAD_TOL of its largest magnitude; the kernel run
+    launches each kernel once per layer."""
+    from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import layers as nn
+    from repro_torch.models import rwkv6 as W
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S = RWKV_GRAD
+    api = rwkv_model(RWKV_GRAD_LAYERS, torch.float32)
+    cfg = api.cfg
+    params = api.init(torch.Generator("cuda").manual_seed(1))
+    batch = train_batch(api, B, S, 1)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    loss_k, _, got = value_and_grad(api.loss_fn, params, batch,
+                                    torch.float32)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launches = all_launches()
+    if launches["wkv6"] != cfg.num_layers \
+            or launches["wkv6_backward"] != cfg.num_layers:
+        fail(f"rwkv6-7b gradient: launches {launches}, want "
+             f"{cfg.num_layers} of wkv6 and of wkv6_backward")
+
+    def plain(p, b):
+        logits, _ = W.forward(p, cfg, b["tokens"], use_kernel=False)
+        return nn.cross_entropy(logits, b["labels"]), {}
+
+    t0 = time.perf_counter()
+    loss_p, _, want = value_and_grad(plain, params, batch, torch.float32)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    worst, where = 0.0, None
+    for (path, a), b in zip(leaf_paths(got), nn.tree_leaves(want)):
+        share = (a - b).abs().max().item() / max(b.abs().max().item(),
+                                                 1e-30)
+        if share > worst:
+            worst, where = share, path
+    if not worst <= RWKV_GRAD_TOL:
+        fail(f"rwkv6-7b gradient through the kernels differs from the plain "
+             f"loop's by {worst} of {where}'s largest magnitude")
+    checked = grad_leaf_check(got, "rwkv6-7b gradient")
+    out = {"layers": cfg.num_layers, "batch": B, "seq": S,
+           "loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+           "worst_leaf_share": worst, "worst_leaf": where,
+           "grads": checked, "kernel_grad_s": kernel_s,
+           "plain_grad_s": plain_s, "launches": launches,
+           "card": gpu_line()}
+    print(json.dumps({"train_rwkv_gradient": out}), flush=True)
+    del params, got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def rwkv_f32_logits(params, cfg, tokens) -> dict:
@@ -3422,7 +3868,8 @@ def ptxas_usage(log: str) -> dict:
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?"
-                      r"(flash_kernel_\w+?|wkv6_kernel|duplex_kernel|"
+                      r"(flash_kernel_\w+?|wkv6_backward_kernel|wkv6_kernel|"
+                      r"duplex_kernel|"
                       r"dequant_kernel|quant_kernel)IL[ib](\d+)E", line)
         if m:
             cur = f"{m.group(1)}<{m.group(2)}>"
@@ -3518,6 +3965,9 @@ def card_main(cpu: tuple) -> int:
     check_wkv6()
     wkv_row = measure_wkv6(WKV_CHECKS[-1][:4])
     mark("wkv6_kernel")
+    wkv_bwd_row = measure_wkv6_backward(WKV_BWD_CHECKS[-1][:4],
+                                        check_wkv6_backward())
+    mark("wkv6_backward_kernel")
 
     api, params = full_model()
     shapes_seen: dict = {}
@@ -3649,6 +4099,26 @@ def card_main(cpu: tuple) -> int:
     mark("zamba2_forward")
     del zapi, zparams
     torch.cuda.empty_cache()
+    # the training path, before the snapshot phase; its step profiles are
+    # taken as they come (profile_once)
+    train = {"smollm": smollm_train_phase()}
+    mark("train_smollm")
+    train["host_vs_device"] = smollm_host_vs_device_phase()
+    mark("train_host_vs_device")
+    train["rwkv"] = rwkv_train_phase()
+    mark("train_rwkv")
+    train["rwkv_gradient"] = rwkv_grad_phase()
+    mark("train_rwkv_gradient")
+    # measured at the rwkv6-7b training shape; launched once per layer of
+    # each training step (both kernels; the forward's row keeps its
+    # forward-path count)
+    wkv_row["launches_training"] = train["rwkv"]["launches"]["wkv6"]
+    wkv_bwd_row["launches"] = train["rwkv"]["launches"]["wkv6_backward"]
+    wkv_bwd_row["launches_per_step"] = \
+        train["rwkv"]["launches_per_step"]["wkv6_backward"]
+    wkv_bwd_row["launches_gradient_check"] = \
+        train["rwkv_gradient"]["launches"]["wkv6_backward"]
+    kernels.append(wkv_bwd_row)
     # after every profile: with it earlier in the process, the profiler
     # lost device events of rwkv6-7b's decode-step profiles (PERF.md)
     snap_shapes: dict = {}

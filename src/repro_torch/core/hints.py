@@ -11,6 +11,7 @@ time" (``preferred_tier``): the system default sets no tier.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Iterator
 
 _UNSET = None
@@ -99,6 +100,12 @@ class HintTree:
             self._hints.setdefault(inter, MemoryHint())
         self._hints["/" + "/".join(parts)] = hint
 
+    def remove(self, path: str) -> None:
+        if path == "/":
+            self._hints["/"] = MemoryHint()
+        else:
+            self._hints.pop(path, None)
+
     def resolve(self, path: str) -> MemoryHint:
         """Walk root->leaf merging hints, then fill system defaults.
         Paths need not have been ``set``; they resolve through ancestors."""
@@ -114,6 +121,39 @@ class HintTree:
 
     def paths(self) -> Iterator[str]:
         return iter(sorted(self._hints))
+
+    # -- serialization (the "filesystem interface") -------------------------
+    def to_json(self) -> str:
+        payload = {
+            path: {f: getattr(h, f) for f in MemoryHint.FIELDS
+                   if getattr(h, f) is not None}
+            for path, h in sorted(self._hints.items())
+        }
+        return json.dumps(payload, indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, text: str) -> "HintTree":
+        tree = cls()
+        for path, fields in json.loads(text).items():
+            tree.set(path, MemoryHint(**fields))
+        return tree
+
+
+def default_training_hints() -> HintTree:
+    """Framework defaults for a training job (the reference's scopes):
+    forward activations are write-then-read, gradient reduce-scatter is
+    TX-heavy, optimizer offload reads and writes host memory, checkpoint
+    writes are pure-write sequential."""
+    t = HintTree()
+    t.set("/train", MemoryHint(priority=1.0))
+    t.set("/train/fwd", MemoryHint(read_fraction=0.6))
+    t.set("/train/bwd", MemoryHint(read_fraction=0.45))
+    t.set("/train/grads", MemoryHint(read_fraction=0.1, sequential=True))
+    t.set("/train/opt_offload",
+          MemoryHint(read_fraction=0.5, sequential=True, priority=0.8))
+    t.set("/train/checkpoint",
+          MemoryHint(read_fraction=0.0, sequential=True, priority=0.2))
+    return t
 
 
 def default_serving_hints() -> HintTree:

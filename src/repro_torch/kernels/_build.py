@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -76,3 +78,18 @@ def check_tensor(t, name: str, dtype, shape: tuple, device=None) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record a call of kernel ``name`` on
+    ``tensors``: a ctypes kernel fills its outputs outside autograd, so
+    a gradient through it would be lost without a word. ``wkv6`` is
+    differentiated through its ``torch.autograd.Function``
+    (``kernels/ops.py``); the other kernels have no backward, in the
+    reference or here."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: called with grad mode on and an input "
+            f"that requires grad (run it under torch.no_grad(), or through "
+            f"its autograd Function where it has one)")

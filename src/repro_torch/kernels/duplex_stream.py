@@ -9,7 +9,9 @@ library with a plain C interface and loaded with ``ctypes`` by
 ``kernels/_build.py``. Nothing is compiled or loaded when this module is
 imported.
 
-Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
+Each wrapper raises when autograd would record it (the kernels have no
+backward, in the reference or here). It takes CUDA tensors only: it
+checks device, dtype, shape and
 contiguity and raises on anything else, allocates its outputs with
 ``torch.empty``, picks the launch geometry (``geometry``: 16-byte or
 element accesses, blocks a row), launches on the current stream, raises if the launch
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_tensor as _check
+from repro_torch.kernels._build import check_no_grad as _no_grad
 
 SOURCE = _build.CSRC / "duplex_stream.cu"
 
@@ -129,6 +132,7 @@ def duplex_kv_stream(in_q: torch.Tensor, in_scale: torch.Tensor,
     """Fused page-in dequantize + page-out quantize, one launch.
     in_q (N,T,D) int8, in_scale (N,T,1) f32, out_x (N,T,D) bf16 ->
     (in_deq (N,T,D) bf16, out_q (N,T,D) int8, out_scale (N,T,1) f32)."""
+    _no_grad("duplex_kv_stream", in_q, in_scale, out_x)
     N, T, D = _blocks(in_q, "in_q")
     dev = in_q.device
     _check(in_q, "in_q", torch.int8, (N, T, D))
@@ -149,6 +153,7 @@ def duplex_kv_stream(in_q: torch.Tensor, in_scale: torch.Tensor,
 
 def quant_stream(out_x: torch.Tensor):
     """Page-out half: (N,T,D) bf16 -> (N,T,D) int8, (N,T,1) f32 scales."""
+    _no_grad("quant_stream", out_x)
     N, T, D = _blocks(out_x, "out_x")
     dev = out_x.device
     _check(out_x, "out_x", torch.bfloat16, (N, T, D))
@@ -164,6 +169,7 @@ def quant_stream(out_x: torch.Tensor):
 
 def dequant_stream(in_q: torch.Tensor, in_scale: torch.Tensor):
     """Page-in half: (N,T,D) int8 x (N,T,1) f32 -> (N,T,D) bf16."""
+    _no_grad("dequant_stream", in_q, in_scale)
     N, T, D = _blocks(in_q, "in_q")
     dev = in_q.device
     _check(in_q, "in_q", torch.int8, (N, T, D))

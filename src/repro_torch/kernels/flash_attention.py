@@ -28,7 +28,9 @@ It computes the reference model's mask (``layers._mask_bias``), not the
 Pallas kernel's: prefix keys are visible to every query under ``causal``
 whatever q tile it sits in, and the window does not exempt them.
 
-The wrapper takes CUDA tensors only: it checks device, dtype, rank,
+The wrapper raises when autograd would record it (no backward, in the
+reference or here: training runs the plain attention). It takes CUDA
+tensors only: it checks device, dtype, rank,
 shapes, contiguity, 16-byte alignment and ``hd`` in ``HEAD_DIMS`` and
 raises on anything else, allocates the output with ``torch.empty``,
 launches on the current stream (one kernel per call), raises if the
@@ -46,6 +48,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_tensor as _check
+from repro_torch.kernels._build import check_no_grad as _no_grad
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 
@@ -90,6 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     prefix_len: int = 0) -> torch.Tensor:
     """q (B, S, H, hd), k and v (B, S, KV, hd), bf16 or f32, contiguous
     -> (B, S, H, hd) in q's dtype. ``window`` None means no window."""
+    _no_grad("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"want q (B, S, H, hd) and k, v (B, S, KV, hd), "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")

@@ -6,7 +6,9 @@ tensors it is given: a CPU tensor goes to the plain version in
 ``kernels/duplex_stream.py``, ``kernels/vector_distance.py``,
 ``kernels/flash_attention.py`` or ``kernels/rwkv6_scan.py``, which
 launches or raises. There is no
-fallback from the kernel to the plain version.
+fallback from the kernel to the plain version. ``wkv6`` is the one
+kernel with a gradient: under autograd on a CUDA tensor it goes through
+``WKV6Function``, whose backward is the CUDA ``wkv6_backward``.
 """
 
 from __future__ import annotations
@@ -86,13 +88,42 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                prefix_len=prefix_len)
 
 
+class WKV6Function(torch.autograd.Function):
+    """``wkv6`` with its gradient: on a CUDA tensor the forward is the
+    CUDA kernel and the backward the CUDA backward kernel
+    (``rwkv6_scan.wkv6`` / ``wkv6_backward``); on the CPU their plain
+    versions (``ref.wkv6`` / ``ref.wkv6_backward``). Saves r, k, v, w, u.
+    Inputs f32 (B, S, H, hs) and u (H, hs), contiguous."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        if _on_cpu(r):
+            return ref.wkv6(r, k, v, w, u)[0]
+        return _rs.wkv6(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, dout):
+        r, k, v, w, u = ctx.saved_tensors
+        dout = dout.float().contiguous()
+        if _on_cpu(r):
+            return ref.wkv6_backward(r, k, v, w, u, dout)
+        return _rs.wkv6_backward(r, k, v, w, u, dout)
+
+
 def wkv6(r, k, v, w, u, *, chunk: int = 128):
     """The WKV6 recurrence from a zero state. r, k, v, w: (B, S, H, hs)
     (w in (0, 1)); u: (H, hs) -> out (B, S, H, hs) f32. ``chunk`` is the
     reference's divisibility contract (``S % min(chunk, S) == 0``),
     checked on every device; the CUDA kernel has no such limit and walks
     time in its own chunks. Inputs are taken in f32, as the reference's
-    kernel upcasts them."""
+    kernel upcasts them.
+
+    On a CUDA tensor that autograd records (grad mode on, an input that
+    requires grad) the call goes through ``WKV6Function``, whose backward
+    is the CUDA backward kernel; otherwise straight to the kernel, and
+    nothing is saved. On the CPU the plain loop, which autograd
+    differentiates itself."""
     S = r.shape[1]
     ch = min(chunk, S)
     if S % ch:
@@ -100,4 +131,7 @@ def wkv6(r, k, v, w, u, *, chunk: int = 128):
     r, k, v, w, u = (t.float().contiguous() for t in (r, k, v, w, u))
     if _on_cpu(r):
         return ref.wkv6(r, k, v, w, u)[0]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u)):
+        return WKV6Function.apply(r, k, v, w, u)
     return _rs.wkv6(r, k, v, w, u)

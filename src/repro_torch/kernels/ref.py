@@ -32,6 +32,63 @@ def wkv6(r, k, v, w, u, state=None):
     return wkv_scan(r, k, v, w, u, state)
 
 
+#: steps between the states the backward keeps (its kernel's chunk)
+WKV_BWD_STEPS = 16
+
+
+def wkv6_backward(r, k, v, w, u, dout, steps: int = WKV_BWD_STEPS):
+    """The gradient of ``wkv6``'s output (from a zero state) against
+    ``dout``: (dr, dk, dv, dw (B, S, H, hs), du (H, hs)), in f32, by the
+    algorithm of the CUDA backward (``csrc/rwkv6_scan.cu``). With S_t the
+    state after step t and G_t = dL/dS_t (G_{S-1} = 0,
+    G_{t-1} = w_t * G_t + r_t dout_t^T):
+
+      dr_t[i] = sum_j dout_t[j] (S_{t-1}[i, j] + u_i k_t[i] v_t[j])
+      dk_t[i] = sum_j G_t[i, j] v_t[j] + u_i r_t[i] (v_t . dout_t)
+      dv_t[j] = sum_i G_t[i, j] k_t[i] + dout_t[j] sum_i r_t[i] u_i k_t[i]
+      dw_t[i] = sum_j G_t[i, j] S_{t-1}[i, j]
+      du[i]   = sum_{b, t} r_t[i] k_t[i] (v_t . dout_t)
+
+    A first loop forward in time keeps the state every ``steps`` steps
+    and emits dr; a second loop backward in time carries G and recomputes
+    each chunk's states from its kept one (never S_{t-1} from S_t by
+    dividing by w_t, which reaches 0). du is summed per (b, h), then over
+    b. Computed in f32 (f64 inputs stay f64, for ``gradcheck``)."""
+    dt = torch.float64 if r.dtype == torch.float64 else torch.float32
+    r, k, v, w, u, dout = (t.to(dt) for t in (r, k, v, w, u, dout))
+    B, S, H, hs = r.shape
+    vd = (v * dout).sum(-1, keepdim=True)               # (B, S, H, 1)
+    bonus = (r * u * k).sum(-1, keepdim=True)           # (B, S, H, 1)
+    state = torch.zeros((B, H, hs, hs), dtype=dt, device=r.device)
+    kept = []
+    dr = torch.empty_like(r)
+    for t in range(S):
+        if t % steps == 0:
+            kept.append(state)
+        dr[:, t] = (torch.einsum("bhij,bhj->bhi", state, dout[:, t])
+                    + u * k[:, t] * vd[:, t])
+        state = (w[:, t, :, :, None] * state
+                 + k[:, t, :, :, None] * v[:, t, :, None, :])
+    dk, dv, dw = (torch.empty_like(r) for _ in range(3))
+    du = torch.zeros((B, H, hs), dtype=dt, device=r.device)
+    g = torch.zeros_like(state)
+    for c0 in reversed(range(0, S, steps)):
+        states = [kept[c0 // steps]]
+        for t in range(c0, min(c0 + steps, S) - 1):
+            states.append(w[:, t, :, :, None] * states[-1]
+                          + k[:, t, :, :, None] * v[:, t, :, None, :])
+        for t in reversed(range(c0, min(c0 + steps, S))):
+            dk[:, t] = (torch.einsum("bhij,bhj->bhi", g, v[:, t])
+                        + u * r[:, t] * vd[:, t])
+            dv[:, t] = (torch.einsum("bhij,bhi->bhj", g, k[:, t])
+                        + dout[:, t] * bonus[:, t])
+            dw[:, t] = (g * states[t - c0]).sum(-1)
+            du = du + r[:, t] * k[:, t] * vd[:, t]
+            g = (w[:, t, :, :, None] * g
+                 + r[:, t, :, :, None] * dout[:, t, :, None, :])
+    return dr, dk, dv, dw, du.sum(0)
+
+
 def quantize_int8(x: torch.Tensor):
     """Per-row symmetric int8 quantization. x: (..., T, D) -> (q, scale)
     with scale = max(amax, 1e-8) / 127, a true divide, round half to

@@ -1,4 +1,5 @@
-"""Hopper CUDA kernel for the WKV6 recurrence, and its wrapper.
+"""Hopper CUDA kernels for the WKV6 recurrence and its gradient, and
+their wrappers.
 
 Port of ``repro/kernels/rwkv6_scan.py`` (``wkv6``, the ``pl.pallas_call``
 at :70, kernel body ``_wkv_kernel`` at :26): the time-mix recurrence of
@@ -28,13 +29,26 @@ next one loads, and the chunk's outputs leave 16 bytes a thread. The
 state update rounds exactly as the plain version does, so the state is
 bit-equal to it; only the output's sums differ in order.
 
-The wrapper takes CUDA tensors only: it checks device, dtype, rank,
+The backward (``wkv6_backward``, the gradient of the recurrence; no TPU
+kernel has one: the reference trains through its plain scan) is a
+second kernel in the same source, one launch a call: one thread block
+per (b, h) walks time forward, recomputing the state and emitting dr,
+with the state kept every ``BWD_STEPS`` steps, then backward, carrying
+dL/dS and recomputing each chunk's states from the kept one, emitting
+dk, dv, dw and a per-(b, h) partial of du that the wrapper sums over b
+(design and bound in ``csrc/rwkv6_scan.cu``). ``kernels/ops.py`` wraps
+the pair in a ``torch.autograd.Function``.
+
+The wrappers take CUDA tensors only: they check device, dtype, rank,
 shapes, contiguity, 16-byte alignment and ``hs`` in {16, 32, 64, 128}
-and raises on anything else, allocates the output with ``torch.empty``,
-launches on the current stream, raises if the launch was refused, and
-adds one to ``LAUNCHES["wkv6"]``. The plain version is
-``kernels/ref.py::wkv6``; ``kernels/ops.py`` picks between the two by the
-tensor's device.
+and raise on anything else, allocate outputs and scratch with
+``torch.empty``, launch on the current stream, raise if the launch was
+refused, and add one to ``LAUNCHES["wkv6"]`` or
+``LAUNCHES["wkv6_backward"]``. ``wkv6`` also raises when autograd would
+record it (grad mode on, an input that requires grad): its gradient
+comes only through the ``Function``. The plain versions are
+``kernels/ref.py::wkv6`` and ``::wkv6_backward``; ``kernels/ops.py``
+picks between kernel and plain version by the tensor's device.
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import check_no_grad as _no_grad
 from repro_torch.kernels._build import check_tensor as _check
 
 SOURCE = _build.CSRC / "rwkv6_scan.cu"
@@ -52,13 +67,17 @@ SOURCE = _build.CSRC / "rwkv6_scan.cu"
 HEAD_SIZES = (16, 32, 64, 128)
 
 #: launches, counted where the kernel is launched and nowhere else
-LAUNCHES = {"wkv6": 0}
+LAUNCHES = {"wkv6": 0, "wkv6_backward": 0}
+
+#: steps between the states the backward keeps (its kernel's kSteps)
+BWD_STEPS = 16
 
 _lib = None
 
 
 def reset_launches() -> None:
     LAUNCHES["wkv6"] = 0
+    LAUNCHES["wkv6_backward"] = 0
 
 
 def library_path():
@@ -77,6 +96,8 @@ def _load():
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.wkv6_launch.argtypes = [vp] * 6 + [i32] * 4 + [vp]
         lib.wkv6_launch.restype = i32
+        lib.wkv6_backward_launch.argtypes = [vp] * 13 + [i32] * 4 + [vp]
+        lib.wkv6_backward_launch.restype = i32
         lib.rwkv6_scan_error_string.argtypes = [i32]
         lib.rwkv6_scan_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -88,23 +109,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r, k, v, w (B, S, H, hs) f32 (w in (0, 1)), u (H, hs) f32, all
     contiguous -> out (B, S, H, hs) f32, the WKV6 recurrence from a zero
     state."""
-    if r.dim() != 4 or u.dim() != 2:
-        raise ValueError(f"want r, k, v, w (B, S, H, hs) and u (H, hs), got "
-                         f"{tuple(r.shape)} and {tuple(u.shape)}")
-    B, S, H, hs = r.shape
+    _no_grad("wkv6", r, k, v, w, u)
+    B, S, H, hs = _check_inputs(r, k, v, w, u)
     dev = r.device
-    _check(r, "r", torch.float32, (B, S, H, hs))
-    for name, t in (("k", k), ("v", v), ("w", w)):
-        _check(t, name, torch.float32, (B, S, H, hs), dev)
-    _check(u, "u", torch.float32, (H, hs), dev)
-    if hs not in HEAD_SIZES:
-        raise ValueError(f"head size {hs} is not one the kernel is built for "
-                         f"{HEAD_SIZES}")
-    if B * H >= 2 ** 31 or S >= 2 ** 31:
-        raise ValueError(f"unsupported shape {(B, S, H, hs)}")
-    if any(t.data_ptr() % 16 for t in (r, k, v, w)):
-        raise ValueError("r, k, v and w must start on a 16-byte boundary (the "
-                         "kernel reads 16 bytes at a time)")
     lib = _load()
     with torch.cuda.device(dev):
         out = torch.empty_like(r)
@@ -120,3 +127,59 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{lib.rwkv6_scan_error_string(rc).decode()}")
         LAUNCHES["wkv6"] += 1
     return out
+
+
+def _check_inputs(r, k, v, w, u, *more) -> tuple:
+    """(B, S, H, hs) after the checks both kernels make; ``more`` are
+    further (name, tensor) pairs of r's shape."""
+    if r.dim() != 4 or u.dim() != 2:
+        raise ValueError(f"want r, k, v, w (B, S, H, hs) and u (H, hs), got "
+                         f"{tuple(r.shape)} and {tuple(u.shape)}")
+    B, S, H, hs = r.shape
+    dev = r.device
+    _check(r, "r", torch.float32, (B, S, H, hs))
+    pairs = (("k", k), ("v", v), ("w", w)) + more
+    for name, t in pairs:
+        _check(t, name, torch.float32, (B, S, H, hs), dev)
+    _check(u, "u", torch.float32, (H, hs), dev)
+    if hs not in HEAD_SIZES:
+        raise ValueError(f"head size {hs} is not one the kernel is built for "
+                         f"{HEAD_SIZES}")
+    if B * H >= 2 ** 31 or S >= 2 ** 31:
+        raise ValueError(f"unsupported shape {(B, S, H, hs)}")
+    if any(t.data_ptr() % 16 for t in (r, *(t for _, t in pairs))):
+        raise ValueError("r, k, v, w (and dout) must start on a 16-byte "
+                         "boundary (the kernels read 16 bytes at a time)")
+    return B, S, H, hs
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, dout: torch.Tensor):
+    """The gradient of ``wkv6(r, k, v, w, u)`` against ``dout`` (B, S, H,
+    hs) f32: (dr, dk, dv, dw (B, S, H, hs), du (H, hs)), f32. One launch;
+    du is the kernel's per-(b, h) partial summed over b here."""
+    B, S, H, hs = _check_inputs(r, k, v, w, u, ("dout", dout))
+    dev = r.device
+    lib = _load()
+    with torch.cuda.device(dev):
+        grads = [torch.empty_like(r) for _ in range(4)]
+        du_part = torch.empty((B, H, hs), dtype=torch.float32, device=dev)
+        if r.numel() == 0:
+            return (*grads, du_part.sum(0))
+        chunks = -(-S // BWD_STEPS)
+        kept = torch.empty((B * H * chunks * hs * hs,), dtype=torch.float32,
+                           device=dev)
+        hist = torch.empty((B * H * BWD_STEPS * hs * hs,),
+                           dtype=torch.float32, device=dev)
+        rc = lib.wkv6_backward_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), dout.data_ptr(),
+            *(t.data_ptr() for t in grads), du_part.data_ptr(),
+            kept.data_ptr(), hist.data_ptr(), B, S, H, hs,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc != 0:
+            raise RuntimeError(
+                "wkv6_backward kernel launch failed: "
+                f"{lib.rwkv6_scan_error_string(rc).decode()}")
+        LAUNCHES["wkv6_backward"] += 1
+    return (*grads, du_part.sum(0))

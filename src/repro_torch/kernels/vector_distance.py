@@ -8,7 +8,9 @@ bounds it and how), built at first use and loaded with ``ctypes`` by
 ``kernels/_build.py``. Nothing is compiled or loaded when this module is
 imported.
 
-The wrapper takes CUDA tensors only: it checks device, dtype, rank,
+The wrapper raises when autograd would record it (no backward, in the
+reference or here). It takes CUDA tensors only: it checks device,
+dtype, rank,
 contiguity and matching D and raises on anything else, allocates the
 output with ``torch.empty``, picks the launch geometry (``geometry``: how
 D and the rows are cut across blocks), launches on the current stream,
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_tensor as _check
+from repro_torch.kernels._build import check_no_grad as _no_grad
 
 SOURCE = _build.CSRC / "vector_distance.cu"
 
@@ -118,6 +121,7 @@ def _load():
 def l2_distance(queries: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     """Squared L2 distances: queries (Q, D) f32, blocks (N, T, D) bf16 ->
     (N, Q, T) f32, as ``|q|^2 + |b|^2 - 2 q.b`` in f32."""
+    _no_grad("l2_distance", queries, blocks)
     if queries.dim() != 2 or blocks.dim() != 3:
         raise ValueError(f"want queries (Q, D) and blocks (N, T, D), got "
                          f"{tuple(queries.shape)} and {tuple(blocks.shape)}")

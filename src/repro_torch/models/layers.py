@@ -8,9 +8,10 @@ layer stacks carry a leading L axis, activations and params default to
 bf16, and normalization, RoPE and softmax run in f32. bf16 rounding
 happens at the reference's casts: ``rmsnorm``'s output, ``rope``'s
 output, the softmax probabilities before P.V, and ``swiglu``'s product
-before the down projection. Nothing here takes a gradient, so the
-reference's ``jax.checkpoint`` around each attention q block has no
-counterpart.
+before the down projection. Under autograd (training) each attention q
+block is recomputed in the backward pass instead of keeping its scores
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+around each q block does.
 
 The decode cache is updated in place (the reference donates it to the
 jitted step and rebinds the result).
@@ -19,10 +20,12 @@ jitted step and rebinds the result).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -57,11 +60,14 @@ def layernorm_init(lead: tuple, dim: int, dtype=DEFAULT_DTYPE,
             "bias": torch.zeros((*lead, dim), dtype=dtype, device=device)}
 
 
-def tree_map(fn, tree):
-    """``fn`` over the leaves of a nested dict of tensors (params, caches)."""
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a nested dict of tensors (params, caches);
+    with ``rest``, over the matching leaves of trees of the same
+    structure (``fn(leaf, *their leaves)``)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree):
@@ -74,6 +80,19 @@ def tree_leaves(tree):
             yield from tree_leaves(tree[k])
     else:
         yield tree
+
+
+def tree_unflatten(tree, leaves):
+    """``leaves`` (an iterable in ``tree_leaves`` order) in ``tree``'s
+    structure."""
+    it = iter(leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return walk(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -198,9 +217,17 @@ def attention(q, k, v, spec: AttnSpec, q_positions=None,
     if Sq % qb != 0:                      # fall back to one dense block
         return _sdpa_block(q, k, v,
                            _mask_bias(q_positions, kv_positions, spec))
+    # under autograd, recompute each block's scores and probabilities in
+    # the backward pass instead of keeping (B, qb, H, Skv) f32 residuals
+    # per block of every layer (the reference's jax.checkpoint)
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    block = (functools.partial(torch.utils.checkpoint.checkpoint,
+                               _sdpa_block, use_reentrant=False)
+             if remat else _sdpa_block)
     return torch.cat([
-        _sdpa_block(q[:, i:i + qb], k, v,
-                    _mask_bias(q_positions[:, i:i + qb], kv_positions, spec))
+        block(q[:, i:i + qb], k, v,
+              _mask_bias(q_positions[:, i:i + qb], kv_positions, spec))
         for i in range(0, Sq, qb)], dim=1)
 
 
@@ -367,15 +394,38 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.gather(x, -1, idx), idx
 
 
+class _BmmF32(torch.autograd.Function):
+    """``torch.bmm(a, b, out_dtype=torch.float32)`` with a gradient:
+    autograd has no derivative for the ``out_dtype`` product. The
+    backward takes both products in f32 from the f32 cotangent and
+    rounds each to its operand's dtype, as ``jax.grad`` of the
+    reference's ``preferred_element_type=f32`` einsum does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        return (torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype),
+                torch.bmm(a.float().transpose(1, 2), g).to(b.dtype))
+
+
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched product with an f32 result that is never rounded to the
     operands' dtype (the reference's ``preferred_element_type=f32``). On
-    the card cuBLAS writes f32 from bf16 operands (``out_dtype``); the
-    CPU has no such kernel, so there both operands go to f32, where the
-    bf16 products are exact."""
+    the card cuBLAS writes f32 from bf16 operands (``out_dtype``; under
+    autograd through ``_BmmF32``, which gives it a backward); the CPU has
+    no such kernel, so there both operands go to f32, where the bf16
+    products are exact."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.is_cuda:
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _BmmF32.apply(a, b)
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 

@@ -1,0 +1,5 @@
+from repro_torch.optim.adamw import (
+    AdamWConfig, adamw_init, adamw_update, cosine_schedule,
+    global_norm, clip_by_global_norm,
+)
+from repro_torch.optim.host_offload import HostOffloadAdamW

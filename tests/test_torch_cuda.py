@@ -6,8 +6,11 @@ mixtral-8x7b paged), the MoE block against the CPU's, the
 forward through the flash-attention kernel, the RWKV6 forward
 through the wkv6 kernel, a traced engine against an untraced one, the
 stream simulator on the card against the CPU and its step graphs
-against its eager steps, and a crashed graphed engine restored from its
-snapshots against its uncrashed twin.
+against its eager steps, a crashed graphed engine restored from its
+snapshots against its uncrashed twin, and training: the wkv6 backward
+kernel against its plain version, ``ops.wkv6`` through its autograd
+Function, the kernel wrappers refusing inputs that require grad, and
+one train step of mixtral-8x7b and of rwkv6-7b (SMOKE) on the card.
 They skip where there is no CUDA device; on a machine with one, run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -866,3 +869,134 @@ def test_sharded_engine_on_the_card(cuda, monkeypatch):
     assert paths["/serve/ici/data"]["bytes"] > 0
     assert graphed["launches"]["duplex_kv_stream"] > 0
     graphed_eng.pool.check_invariants()
+
+
+def _wkv_grad_inputs(shape, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    B, S, H, hs = shape
+    r, k, v, n, d = (torch.randn(shape, generator=g) for _ in range(5))
+    w = torch.exp(-torch.exp(-1.0 + n))
+    u = 0.5 * torch.randn((H, hs), generator=g)
+    return [x.to(device) for x in (r, k, v, w, u, d)]
+
+
+@pytest.mark.parametrize("shape", [(2, 200, 3, 64), (1, 77, 2, 16),
+                                   (1, 100, 2, 128), (2, 33, 2, 32),
+                                   (1, 1, 1, 64)])
+def test_wkv6_backward_matches_plain_version(cuda, shape):
+    """The backward kernel against ``ref.wkv6_backward``, each gradient
+    within 1e-4 of its largest magnitude (ragged S, no multiple of the
+    kernel's 16-step chunk; S = 1)."""
+    from repro_torch.kernels import rwkv6_scan as rs
+    x = _wkv_grad_inputs(shape, sum(shape), cuda)
+    before = rs.LAUNCHES["wkv6_backward"]
+    got = rs.wkv6_backward(*x)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["wkv6_backward"] == before + 1
+    want = ref.wkv6_backward(*x)
+    for name, a, b in zip("r k v w u".split(), got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        scale = max(b.abs().max().item(), 1e-30)
+        assert (a - b).abs().max().item() <= 1e-4 * scale, name
+
+
+def test_wkv6_function_through_the_kernels(cuda):
+    """Under autograd ``ops.wkv6`` runs the forward and the backward
+    kernel once each, with the plain loop's gradients; under no_grad
+    only the forward kernel."""
+    from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.models.rwkv6 import wkv_scan
+    x = _wkv_grad_inputs((2, 64, 2, 64), 5, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in x[:5]]
+    rs.reset_launches()
+    out = ops.wkv6(*leaves, chunk=64)
+    got = torch.autograd.grad(out, leaves, x[5])
+    assert rs.LAUNCHES == {"wkv6": 1, "wkv6_backward": 1}
+    plain = [t.clone().requires_grad_(True) for t in x[:5]]
+    want = torch.autograd.grad(wkv_scan(*plain)[0], plain, x[5])
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    with torch.no_grad():
+        ops.wkv6(*leaves, chunk=64)
+    assert rs.LAUNCHES == {"wkv6": 2, "wkv6_backward": 1}
+
+
+def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
+    """No silent gradient: every kernel wrapper raises when autograd
+    would record it, on CUDA tensors too."""
+    from repro_torch.kernels import rwkv6_scan as rs
+    q = torch.randn((1, 16, 2, 64), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.randn((1, 16, 1, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="flash_attention has no backward"):
+        fa.flash_attention(q, kv, kv)
+    x = torch.randn((1, 16, 32), device=cuda).to(torch.bfloat16)
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="quant_stream has no backward"):
+        ds.quant_stream(x)
+    qs = torch.randn((2, 32), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="l2_distance has no backward"):
+        vd.l2_distance(qs, x.detach())
+    r = torch.rand((1, 16, 1, 16), device=cuda, requires_grad=True)
+    u = torch.rand((1, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="wkv6 has no backward"):
+        rs.wkv6(r, r.detach(), r.detach(), r.detach(), u)
+
+
+def test_moe_train_step_on_the_card(cuda):
+    """One ``make_train_step`` of mixtral-8x7b SMOKE on the card: every
+    leaf gets a finite gradient (the expert products go through
+    ``layers._BmmF32``: autograd has no derivative of ``torch.bmm`` with
+    ``out_dtype``), and the step moves the parameters."""
+    from repro_torch.launch.steps import make_grads_step, make_train_step
+    from repro_torch.models import layers as nn
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_init
+    api = registry.build("mixtral-8x7b", smoke=True, device="cuda")
+    params = api.init(torch.Generator("cuda").manual_seed(0))
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, api.cfg.vocab, (2, 16)))
+             .to(cuda) for k in ("tokens", "labels")}
+    grads, metrics = make_grads_step(api)(params, batch)
+    assert torch.isfinite(metrics["loss"])
+    for g in nn.tree_leaves(grads):
+        assert torch.isfinite(g.float()).all()
+    assert grads["layers"]["moe"]["w_gate"].abs().max() > 0
+    new, state, m = make_train_step(api)(params, adamw_init(params), batch)
+    assert int(state["step"]) == 1 and torch.isfinite(m["grad_norm"])
+    assert not torch.equal(new["layers"]["moe"]["w_up"],
+                           params["layers"]["moe"]["w_up"])
+
+
+def test_rwkv_train_step_reaches_every_leaf_on_the_card(cuda):
+    """rwkv6-7b SMOKE's gradient on the card through the wkv6 kernels:
+    every leaf finite and not all zero, each of ``mu``'s five rows too,
+    and within 1e-3 of each leaf's largest magnitude of the gradient
+    through the plain loop (f32 weights, TF32 off)."""
+    import dataclasses
+
+    from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import layers as nn
+    from repro_torch.models import registry
+    from repro_torch.models import rwkv6 as W
+    torch.backends.cuda.matmul.allow_tf32 = False
+    api = registry.build("rwkv6-7b", smoke=True, device="cuda")
+    cfg = dataclasses.replace(api.cfg, dtype=torch.float32)
+    api = registry._rwkv_api("rwkv6-7b", cfg, "cuda")
+    params = api.init(torch.Generator("cuda").manual_seed(0))
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
+             .to(cuda) for k in ("tokens", "labels")}
+    rs.reset_launches()
+    _, _, got = value_and_grad(api.loss_fn, params, batch, torch.float32)
+    assert rs.LAUNCHES == {"wkv6": cfg.num_layers,
+                           "wkv6_backward": cfg.num_layers}
+    plain = lambda p, b: (nn.cross_entropy(W.forward(
+        p, cfg, b["tokens"], use_kernel=False)[0], b["labels"]), {})
+    _, _, want = value_and_grad(plain, params, batch, torch.float32)
+    for a, b in zip(nn.tree_leaves(got), nn.tree_leaves(want)):
+        assert torch.isfinite(a).all() and a.abs().max() > 0
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+    mu = got["layers"]["tm"]["mu"]
+    assert (mu.abs().amax(dim=(0, 2)) > 0).all()

@@ -50,6 +50,12 @@ def test_importing_the_port_pulls_in_no_jax():
               "repro_torch.serve.snapshot",
               "repro_torch.checkpoint.sharded"):
         assert m in mods
+    # and the training slice: the data pipeline, the optimizers, the
+    # trainer and its CLI
+    for m in ("repro_torch.data.pipeline", "repro_torch.optim.adamw",
+              "repro_torch.optim.host_offload", "repro_torch.runtime.train",
+              "repro_torch.launch.train", "repro_torch.launch.steps"):
+        assert m in mods
 
 
 def _imports(path: Path) -> set[str]:
@@ -94,6 +100,28 @@ def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch, capsys):
     assert report["device"] == "cpu"
     assert report["generated_tokens"] == 6
     assert report["paging"]["paged"] is True
+
+
+def test_training_needs_a_gpu_unless_told_cpu(monkeypatch, capsys):
+    """The trainer's entry points default to ``cuda``: the CLI and a
+    ``Trainer`` over a default-built model raise without a GPU; with
+    ``--device cpu`` / ``device="cpu"`` they train on the CPU."""
+    from repro_torch.data import device_batch
+    from repro_torch.launch import train
+    if torch.cuda.is_available():
+        pytest.skip("this checks the no-GPU behaviour")
+    argv = ["train", "--steps", "1", "--seq-len", "8", "--global-batch",
+            "2"]
+    monkeypatch.setattr(sys, "argv", argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main()
+    monkeypatch.setattr(sys, "argv", argv + ["--device", "cpu"])
+    assert train.main() == 0
+    assert capsys.readouterr().out.splitlines()[0].endswith("devices=1")
+    import numpy as np
+    batch = device_batch({"tokens": np.zeros((1, 2), np.int32)}, None,
+                         "cpu")
+    assert batch["tokens"].device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(capsys):
