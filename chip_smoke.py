@@ -130,8 +130,10 @@ after:
     with a finite non-zero gradient); and its gradient at two layers in
     f32 against autograd through the plain loop. The ``wkv6_backward``
     kernel is held against ``ref.wkv6_backward`` beside the forward's
-    checks (hs 16, 32, 128, a ragged S, the training shape, and a control
-    that must fail);
+    checks (hs 16, 32, 128, a ragged S, the design's segment and sub-chunk
+    edges, the training shape, and a control that must fail), its
+    geometry against ``rwkv6_scan.backward_geometry``, and timed beside
+    the forward at the training shape;
   * the sharded path (right after the main path): the main path's
     requests on ``ShardedServeEngine`` over (1, 1), (2, 1) and (2, 2)
     meshes of logical ranks on the card, each rank on its own step
@@ -443,11 +445,16 @@ WKV_TOL = 1e-4
 # the wkv6 backward against ref.wkv6_backward on the card, each gradient
 # within WKV_BWD_TOL of its largest magnitude: (B, S, H, hs, draw w and u
 # as the model does). hs 16, 32 and 128, a ragged S (1000 is no multiple
-# of the kernel's 16-step chunk), and last the path shape: the rwkv6-7b
-# training shape (B, S) = RWKV_TRAIN, 64 heads of 64
+# of the kernel's 64-step segment nor of its 8-step sub-chunk); the
+# design's edges at hs 64: S = 1, one sub-chunk less a step (7), one
+# segment (64) and a step more (65); S = 203, a multiple of neither, at hs
+# 16 and 128; and last the path shape: the rwkv6-7b training shape
+# (B, S) = RWKV_TRAIN, 64 heads of 64
 WKV_BWD_CHECKS = [
     (2, 64, 2, 16, False), (1, 128, 3, 32, False), (1, 96, 2, 128, True),
-    (2, 1000, 3, 64, True), (2, 4096, 64, 64, True),
+    (2, 1000, 3, 64, True), (1, 1, 2, 64, True), (2, 7, 2, 64, True),
+    (1, 64, 3, 64, True), (2, 65, 2, 64, True), (1, 203, 3, 16, True),
+    (1, 203, 2, 128, True), (2, 4096, 64, 64, True),
 ]
 WKV_BWD_TOL = 1e-4
 # the training path. smollm-135m FULL: Trainer steps at a global batch of
@@ -713,6 +720,18 @@ def device_profile(fn, iters: int = 20, warmup: int = 1,
     rows = device_events(fn, iters, warmup, per_call)
     return (sum(us for _, _, us in rows) / 1e3 / iters,
             sum(n for _, n, _ in rows) / iters)
+
+
+def stream_ms(fn) -> float:
+    """One call of ``fn`` timed by CUDA events on the current stream."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def paired_profile(fn, iters: int, warmup: int = 1,
@@ -1543,17 +1562,49 @@ def check_wkv6_backward() -> dict:
     return {"shares": shares, "control_shares": control}
 
 
-def measure_wkv6_backward(shape, checked: dict) -> dict:
+def backward_geometry_on_card() -> dict:
+    """The backward kernel's geometry as its source sets it
+    (``wkv6_backward_geometry``) for each head size, held equal to
+    ``rwkv6_scan.backward_geometry``: the shared memory the Python side
+    budgets is the kernel's own."""
+    import ctypes
+
+    from repro_torch.kernels import rwkv6_scan as rs
+    lib = rs._load()
+    keys = ("threads", "rows", "cols", "sub", "seg", "slices", "stages",
+            "smem_bytes")
+    out = {}
+    for hs in rs.HEAD_SIZES:
+        buf = (ctypes.c_longlong * len(keys))()
+        if lib.wkv6_backward_geometry(hs, buf) != 0:
+            fail(f"wkv6_backward_geometry refused hs {hs}")
+        card = dict(zip(keys, buf))
+        want = {k: rs.backward_geometry(hs)[k] for k in keys}
+        if card != want or card["smem_bytes"] > rs.SMEM_LIMIT:
+            fail(f"wkv6_backward geometry at hs {hs}: the kernel's {card}, "
+                 f"the wrapper's {want}")
+        out[hs] = card
+    return out
+
+
+def measure_wkv6_backward(shape, checked: dict, forward_ms: float) -> dict:
     """Time the wkv6 backward kernel (its call: the kernel and the sum of
-    du's partials over b) and its plain version at (B, S, H, hs) with the
-    model's w and u, as ``measure_wkv6`` times the forward. Bound: r, k,
+    du's partials over b) at (B, S, H, hs) with the model's w and u, as
+    ``measure_wkv6`` times the forward, and its plain version by CUDA
+    events over one call (``stream_ms``). Bound: r, k,
     v, w, dout read and dr, dk, dv, dw written once (and u, du) against
     3.35 TB/s, and the fewest f32 operations the function needs, 14 hs^2
     per (b, t, h) (the state recomputed, 3; dout*S, G*v, G*k and G*S with
     their sums, 8; the G update, 3) plus 16 hs (the bonus terms and du),
-    against 67 TFLOP/s on CUDA cores. The design's own count, 17 hs^2 (pass
-    2 recomputes each chunk's states again), is printed beside it. No
-    single PyTorch call computes it: no library time."""
+    against 67 TFLOP/s on CUDA cores. Beside it: the design's own count
+    (pass 1's walk, 3 hs^2; the segment's forward walk, 3 (seg - sub) /
+    seg; a sub-chunk's recomputation, 3 (sub - 1) / sub; the walk back,
+    11: 19.25 hs^2 at seg 64, sub 8) and its time at that rate; the
+    checkpoint bytes it moves beyond the bound's (written once, read
+    once); its launches a call; and its time over ``forward_ms``, the
+    forward kernel's at the same shape in this run (device times move
+    between runs; the ratio less). No single PyTorch call computes it:
+    no library time."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as rs
     B, S, H, hs = shape
@@ -1561,22 +1612,37 @@ def measure_wkv6_backward(shape, checked: dict) -> dict:
     fn = lambda: rs.wkv6_backward(*x)
     plain = lambda: ref.wkv6_backward(*x)
     err = max((a - b).abs().max().item() for a, b in zip(fn(), plain()))
+    geo = rs.backward_geometry(hs, B, S, H)
+    seg, sub = geo["seg"], geo["sub"]
     n = B * S * H
     flops = (14 * hs * hs + 16 * hs) * n
-    design_flops = (17 * hs * hs + 16 * hs) * n
+    design_per = 3 + 3 * (seg - sub) / seg + 3 * (sub - 1) / sub + 11
+    design_flops = (design_per * hs * hs + 16 * hs) * n
+    ckpt_bytes = 2 * 4 * geo["scratch_floats"]
     nbytes = 4 * (9 * n * hs + 2 * H * hs)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_OPS_PER_S * 1e3
     bound = max(t_bytes, t_ops)
     t_design = design_flops / FP32_OPS_PER_S * 1e3
+    before = rs.LAUNCHES["wkv6_backward"]
+    fn()
+    launches_per_call = rs.LAUNCHES["wkv6_backward"] - before
     ms, per_call, ev = median(paired_profile, fn, iters=5,
                               per_call={"wkv6_backward_kernel": 1})
-    plain_ms = device_profile(plain, iters=1, warmup=0)[0]
+    # the plain version's ~140,000 small operations a call lose events in
+    # the profiler: one call by CUDA events (host-bound; the comparison
+    # above was its warm-up)
+    plain_ms = stream_ms(plain)
     print(f"wkv6_backward at {shape}: device ms (profiler) {ms:.4f}, stream "
-          f"ms (CUDA events, stream held) {ev:.4f}, plain {plain_ms:.4f}, "
-          f"bound {bound:.4f} ({t_bytes:.4f} by bytes, {t_ops:.4f} by "
-          f"operations; the design's operations {t_design:.4f})",
-          flush=True)
+          f"ms (CUDA events, stream held) {ev:.4f}, plain (CUDA events) "
+          f"{plain_ms:.4f}, bound {bound:.4f} ({t_bytes:.4f} by bytes, "
+          f"{t_ops:.4f} by operations; the design's {design_per:g} hs^2 "
+          f"a (b, t, h): "
+          f"{t_design:.4f}), checkpoints {ckpt_bytes / 1e9:.4f} GB, "
+          f"{launches_per_call} launch a call, {ms / forward_ms:.3f} x the "
+          f"forward's {forward_ms:.4f} ms", flush=True)
+    if launches_per_call != 1:
+        fail(f"wkv6_backward: {launches_per_call} launches a call, want 1")
     if ms < bound or abs(ms - ev) > FLASH_EVENT_SHARE * ev:
         fail(f"wkv6_backward at {shape}: {ms} ms by the profiler is below "
              f"its bound {bound} ms or more than {FLASH_EVENT_SHARE:.0%} off "
@@ -1590,7 +1656,13 @@ def measure_wkv6_backward(shape, checked: dict) -> dict:
             "ms": ms, "plain_ms": plain_ms, "event_ms": ev,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "flop": flops, "design_flop": design_flops, "bytes": nbytes,
+            "flop": flops, "design_flop": design_flops,
+            "design_ms": t_design, "checkpoint_bytes": ckpt_bytes,
+            "bytes": nbytes, "launches_per_call": launches_per_call,
+            "over_forward": ms / forward_ms, "forward_ms": forward_ms,
+            "geometry": {k: geo[k] for k in ("threads", "rows", "cols",
+                                             "sub", "seg", "stages",
+                                             "smem_bytes")},
             "device_ops_per_call": per_call, "library_ms": None}
 
 
@@ -3965,8 +4037,9 @@ def card_main(cpu: tuple) -> int:
     check_wkv6()
     wkv_row = measure_wkv6(WKV_CHECKS[-1][:4])
     mark("wkv6_kernel")
+    backward_geometry_on_card()
     wkv_bwd_row = measure_wkv6_backward(WKV_BWD_CHECKS[-1][:4],
-                                        check_wkv6_backward())
+                                        check_wkv6_backward(), wkv_row["ms"])
     mark("wkv6_backward_kernel")
 
     api, params = full_model()
@@ -4118,6 +4191,12 @@ def card_main(cpu: tuple) -> int:
         train["rwkv"]["launches_per_step"]["wkv6_backward"]
     wkv_bwd_row["launches_gradient_check"] = \
         train["rwkv_gradient"]["launches"]["wkv6_backward"]
+    # the backward's share of a training step: its launches a step at its
+    # path-shape time, over the median step's wall time after the first
+    step_ms = float(np.median(train["rwkv"]["step_wall_ms"][1:]))
+    wkv_bwd_row["rwkv_train_step_ms"] = step_ms
+    wkv_bwd_row["share_of_rwkv_train_step"] = \
+        wkv_bwd_row["launches_per_step"] * wkv_bwd_row["ms"] / step_ms
     kernels.append(wkv_bwd_row)
     # after every profile: with it earlier in the process, the profiler
     # lost device events of rwkv6-7b's decode-step profiles (PERF.md)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.rwkv6_scan import BWD_SEG, BWD_SUB
 from repro_torch.models import layers as nn
 from repro_torch.models.rwkv6 import wkv_scan
 
@@ -32,11 +33,8 @@ def wkv6(r, k, v, w, u, state=None):
     return wkv_scan(r, k, v, w, u, state)
 
 
-#: steps between the states the backward keeps (its kernel's chunk)
-WKV_BWD_STEPS = 16
-
-
-def wkv6_backward(r, k, v, w, u, dout, steps: int = WKV_BWD_STEPS):
+def wkv6_backward(r, k, v, w, u, dout, seg: int = BWD_SEG,
+                  sub: int = BWD_SUB):
     """The gradient of ``wkv6``'s output (from a zero state) against
     ``dout``: (dr, dk, dv, dw (B, S, H, hs), du (H, hs)), in f32, by the
     algorithm of the CUDA backward (``csrc/rwkv6_scan.cu``). With S_t the
@@ -49,43 +47,66 @@ def wkv6_backward(r, k, v, w, u, dout, steps: int = WKV_BWD_STEPS):
       dw_t[i] = sum_j G_t[i, j] S_{t-1}[i, j]
       du[i]   = sum_{b, t} r_t[i] k_t[i] (v_t . dout_t)
 
-    A first loop forward in time keeps the state every ``steps`` steps
-    and emits dr; a second loop backward in time carries G and recomputes
-    each chunk's states from its kept one (never S_{t-1} from S_t by
-    dividing by w_t, which reaches 0). du is summed per (b, h), then over
-    b. Computed in f32 (f64 inputs stay f64, for ``gradcheck``)."""
+    A first loop forward in time keeps the state at the start of every
+    segment of ``seg`` steps, and nothing else; a second walks the
+    segments newest first: each is walked forward once from its kept
+    state, keeping the state at the start of every sub-chunk of ``sub``
+    steps, then sub-chunk by sub-chunk, newest first, the sub-chunk's
+    states are recomputed from its kept one and walked back carrying G,
+    emitting dr, dk, dv, dw and du (never S_{t-1} from S_t by dividing by
+    w_t, which reaches 0). du is summed per (b, h), then over b. The
+    defaults are the kernel's (``rwkv6_scan.BWD_SEG``, ``BWD_SUB``);
+    ``seg`` must be a multiple of ``sub``. Computed in f32 (f64 inputs
+    stay f64, for ``gradcheck``)."""
+    if sub < 1 or seg < sub or seg % sub:
+        raise ValueError(f"seg={seg} must be a positive multiple of "
+                         f"sub={sub}")
     dt = torch.float64 if r.dtype == torch.float64 else torch.float32
     r, k, v, w, u, dout = (t.to(dt) for t in (r, k, v, w, u, dout))
     B, S, H, hs = r.shape
     vd = (v * dout).sum(-1, keepdim=True)               # (B, S, H, 1)
     bonus = (r * u * k).sum(-1, keepdim=True)           # (B, S, H, 1)
+
+    def step(state, t):
+        return (w[:, t, :, :, None] * state
+                + k[:, t, :, :, None] * v[:, t, :, None, :])
+
+    starts = range(0, S, seg)
     state = torch.zeros((B, H, hs, hs), dtype=dt, device=r.device)
     kept = []
-    dr = torch.empty_like(r)
-    for t in range(S):
-        if t % steps == 0:
+    for t in range(starts[-1]):
+        if t % seg == 0:
             kept.append(state)
-        dr[:, t] = (torch.einsum("bhij,bhj->bhi", state, dout[:, t])
-                    + u * k[:, t] * vd[:, t])
-        state = (w[:, t, :, :, None] * state
-                 + k[:, t, :, :, None] * v[:, t, :, None, :])
-    dk, dv, dw = (torch.empty_like(r) for _ in range(3))
+        state = step(state, t)
+    kept.append(state)                                  # the last's start
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.zeros((B, H, hs), dtype=dt, device=r.device)
     g = torch.zeros_like(state)
-    for c0 in reversed(range(0, S, steps)):
-        states = [kept[c0 // steps]]
-        for t in range(c0, min(c0 + steps, S) - 1):
-            states.append(w[:, t, :, :, None] * states[-1]
-                          + k[:, t, :, :, None] * v[:, t, :, None, :])
-        for t in reversed(range(c0, min(c0 + steps, S))):
-            dk[:, t] = (torch.einsum("bhij,bhj->bhi", g, v[:, t])
-                        + u * r[:, t] * vd[:, t])
-            dv[:, t] = (torch.einsum("bhij,bhi->bhj", g, k[:, t])
-                        + dout[:, t] * bonus[:, t])
-            dw[:, t] = (g * states[t - c0]).sum(-1)
-            du = du + r[:, t] * k[:, t] * vd[:, t]
-            g = (w[:, t, :, :, None] * g
-                 + r[:, t, :, :, None] * dout[:, t, :, None, :])
+    for s0 in reversed(starts):
+        end = min(s0 + seg, S)
+        subs = range(s0, end, sub)
+        sub_kept = [kept[s0 // seg]]
+        st = sub_kept[0]
+        for t in range(s0, subs[-1]):
+            st = step(st, t)
+            if (t + 1 - s0) % sub == 0:
+                sub_kept.append(st)
+        for c0 in reversed(subs):
+            states = [sub_kept[(c0 - s0) // sub]]
+            for t in range(c0, min(c0 + sub, end) - 1):
+                states.append(step(states[-1], t))
+            for t in reversed(range(c0, min(c0 + sub, end))):
+                prev = states[t - c0]
+                dr[:, t] = (torch.einsum("bhij,bhj->bhi", prev, dout[:, t])
+                            + u * k[:, t] * vd[:, t])
+                dk[:, t] = (torch.einsum("bhij,bhj->bhi", g, v[:, t])
+                            + u * r[:, t] * vd[:, t])
+                dv[:, t] = (torch.einsum("bhij,bhi->bhj", g, k[:, t])
+                            + dout[:, t] * bonus[:, t])
+                dw[:, t] = (g * prev).sum(-1)
+                du = du + r[:, t] * k[:, t] * vd[:, t]
+                g = (w[:, t, :, :, None] * g
+                     + r[:, t, :, :, None] * dout[:, t, :, None, :])
     return dr, dk, dv, dw, du.sum(0)
 
 

@@ -32,12 +32,15 @@ bit-equal to it; only the output's sums differ in order.
 The backward (``wkv6_backward``, the gradient of the recurrence; no TPU
 kernel has one: the reference trains through its plain scan) is a
 second kernel in the same source, one launch a call: one thread block
-per (b, h) walks time forward, recomputing the state and emitting dr,
-with the state kept every ``BWD_STEPS`` steps, then backward, carrying
-dL/dS and recomputing each chunk's states from the kept one, emitting
-dk, dv, dw and a per-(b, h) partial of du that the wrapper sums over b
-(design and bound in ``csrc/rwkv6_scan.cu``). ``kernels/ops.py`` wraps
-the pair in a ``torch.autograd.Function``.
+per (b, h) walks time forward, recomputing the state alone and keeping
+it every ``BWD_SEG`` steps (the one global scratch), then walks the
+segments newest first: each is walked forward once with its state kept
+every ``BWD_SUB`` steps in shared memory, then sub-chunk by sub-chunk,
+newest first, the sub-chunk's states are recomputed into registers and
+walked back carrying dL/dS, emitting dr, dk, dv, dw and a per-(b, h)
+partial of du that the wrapper sums over b (design and bound in
+``csrc/rwkv6_scan.cu``; ``backward_geometry`` mirrors its shape).
+``kernels/ops.py`` wraps the pair in a ``torch.autograd.Function``.
 
 The wrappers take CUDA tensors only: they check device, dtype, rank,
 shapes, contiguity, 16-byte alignment and ``hs`` in {16, 32, 64, 128}
@@ -69,8 +72,13 @@ HEAD_SIZES = (16, 32, 64, 128)
 #: launches, counted where the kernel is launched and nowhere else
 LAUNCHES = {"wkv6": 0, "wkv6_backward": 0}
 
-#: steps between the states the backward keeps (its kernel's kSteps)
-BWD_STEPS = 16
+#: steps between the states the backward keeps in global memory (a
+#: segment, its kernel's kSeg), and in shared memory (a sub-chunk, kT)
+BWD_SEG = 64
+BWD_SUB = 8
+
+#: shared memory a block may use on an H100 (227 KB)
+SMEM_LIMIT = 232_448
 
 _lib = None
 
@@ -96,12 +104,45 @@ def _load():
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.wkv6_launch.argtypes = [vp] * 6 + [i32] * 4 + [vp]
         lib.wkv6_launch.restype = i32
-        lib.wkv6_backward_launch.argtypes = [vp] * 13 + [i32] * 4 + [vp]
+        lib.wkv6_backward_launch.argtypes = [vp] * 12 + [i32] * 4 + [vp]
         lib.wkv6_backward_launch.restype = i32
+        lib.wkv6_backward_geometry.argtypes = [i32, vp]
+        lib.wkv6_backward_geometry.restype = i32
         lib.rwkv6_scan_error_string.argtypes = [i32]
         lib.rwkv6_scan_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def backward_geometry(hs: int, batch: int = 1, seq: int = BWD_SEG,
+                      heads: int = 1) -> dict:
+    """The backward kernel's shape at head size ``hs`` (its ``BwdShape``):
+    threads a block, rows x columns of the state a thread, the sub-chunk
+    ``sub`` and segment ``seg`` in steps, the slices of ``slice_rows``
+    rows a block walks in turn (hs 128: four of 32), the input ring's
+    stages, the shared memory of a block in bytes (the slots, the ring,
+    the column partials and the row sums), and the checkpoint scratch
+    the wrapper allocates for (batch, seq, heads), in floats."""
+    if hs not in HEAD_SIZES:
+        raise ValueError(f"head size {hs} is not one the kernel is built for "
+                         f"{HEAD_SIZES}")
+    slice_rows = 32 if hs == 128 else hs
+    rows, cols = 4, 2 if hs == 16 else 4
+    threads = (slice_rows // rows) * (hs // cols)
+    seg, sub, stages = BWD_SEG, BWD_SUB, 3 if hs == 128 else 6
+    floats = ((seg // sub) * slice_rows * hs + stages * 5 * sub * hs
+              + (slice_rows // rows) * sub * hs + 3 * sub * slice_rows)
+    segments = -(-seq // seg)
+    return {"threads": threads, "rows": rows, "cols": cols, "sub": sub,
+            "seg": seg, "slices": hs // slice_rows, "slice_rows": slice_rows,
+            "stages": stages, "smem_bytes": 4 * floats,
+            "scratch_floats": batch * heads * (segments - 1) * slice_rows * hs}
+
+
+def _backward_scratch(B: int, S: int, H: int, hs: int, device):
+    """The checkpoint scratch of one backward call (at least one float)."""
+    n = backward_geometry(hs, B, S, H)["scratch_floats"]
+    return torch.empty((max(n, 1),), dtype=torch.float32, device=device)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -166,16 +207,12 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         du_part = torch.empty((B, H, hs), dtype=torch.float32, device=dev)
         if r.numel() == 0:
             return (*grads, du_part.sum(0))
-        chunks = -(-S // BWD_STEPS)
-        kept = torch.empty((B * H * chunks * hs * hs,), dtype=torch.float32,
-                           device=dev)
-        hist = torch.empty((B * H * BWD_STEPS * hs * hs,),
-                           dtype=torch.float32, device=dev)
+        kept = _backward_scratch(B, S, H, hs, dev)
         rc = lib.wkv6_backward_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), dout.data_ptr(),
             *(t.data_ptr() for t in grads), du_part.data_ptr(),
-            kept.data_ptr(), hist.data_ptr(), B, S, H, hs,
+            kept.data_ptr(), B, S, H, hs,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         if rc != 0:
             raise RuntimeError(

@@ -882,11 +882,17 @@ def _wkv_grad_inputs(shape, seed, device):
 
 @pytest.mark.parametrize("shape", [(2, 200, 3, 64), (1, 77, 2, 16),
                                    (1, 100, 2, 128), (2, 33, 2, 32),
-                                   (1, 1, 1, 64)])
+                                   (1, 1, 1, 64), (1, 7, 2, 64),
+                                   (1, 64, 2, 64), (2, 65, 2, 64),
+                                   (1, 137, 2, 64), (1, 203, 2, 16),
+                                   (1, 203, 1, 128)])
 def test_wkv6_backward_matches_plain_version(cuda, shape):
     """The backward kernel against ``ref.wkv6_backward``, each gradient
-    within 1e-4 of its largest magnitude (ragged S, no multiple of the
-    kernel's 16-step chunk; S = 1)."""
+    within 1e-4 of its largest magnitude: ragged S, no multiple of the
+    kernel's 64-step segment or 8-step sub-chunk; S = 1; one sub-chunk
+    less a step; one segment and a step more; a last segment of two
+    sub-chunks (137), whose successor's checkpoint takes a slot the last
+    never uses; hs 16 and 128 (four slices of rows) at S = 203."""
     from repro_torch.kernels import rwkv6_scan as rs
     x = _wkv_grad_inputs(shape, sum(shape), cuda)
     before = rs.LAUNCHES["wkv6_backward"]
@@ -921,7 +927,47 @@ def test_wkv6_function_through_the_kernels(cuda):
     assert rs.LAUNCHES == {"wkv6": 2, "wkv6_backward": 1}
 
 
+def test_wkv6_backward_geometry_on_the_card(cuda):
+    """The kernel's own geometry (``wkv6_backward_geometry``, from its
+    ``BwdShape``) is the one the wrapper budgets and sizes its scratch
+    by (``rwkv6_scan.backward_geometry``), within the card's 227 KB."""
+    import ctypes
+
+    from repro_torch.kernels import rwkv6_scan as rs
+    lib = rs._load()
+    keys = ("threads", "rows", "cols", "sub", "seg", "slices", "stages",
+            "smem_bytes")
+    for hs in rs.HEAD_SIZES:
+        buf = (ctypes.c_longlong * len(keys))()
+        assert lib.wkv6_backward_geometry(hs, buf) == 0
+        want = rs.backward_geometry(hs)
+        assert dict(zip(keys, buf)) == {k: want[k] for k in keys}
+        assert want["smem_bytes"] <= rs.SMEM_LIMIT
+    assert lib.wkv6_backward_geometry(48, buf) != 0
+
+
+def test_wkv6_function_across_segments(cuda):
+    """``ops.wkv6`` under autograd over three segments of the backward
+    (S = 192), called twice as two layers would be: one ``wkv6_backward``
+    launch a call, and within 1e-4 of the plain loop's gradients."""
+    from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.models.rwkv6 import wkv_scan
+    x = _wkv_grad_inputs((2, 192, 2, 64), 11, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in x[:5]]
+    rs.reset_launches()
+    out = ops.wkv6(*leaves, chunk=64)
+    out = ops.wkv6(out, *leaves[1:], chunk=64)
+    got = torch.autograd.grad(out, leaves, x[5])
+    assert rs.LAUNCHES == {"wkv6": 2, "wkv6_backward": 2}
+    plain = [t.clone().requires_grad_(True) for t in x[:5]]
+    mid = wkv_scan(*plain)[0]
+    want = torch.autograd.grad(wkv_scan(mid, *plain[1:])[0], plain, x[5])
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
 def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
+
     """No silent gradient: every kernel wrapper raises when autograd
     would record it, on CUDA tensors too."""
     from repro_torch.kernels import rwkv6_scan as rs

@@ -3,7 +3,10 @@
 through the port's ``wkv_scan`` (within 1e-5 of each gradient's largest
 magnitude: both f32, sums in another order) and against ``jax.grad`` of
 the JAX package's ``wkv_scan`` (within 1e-4 of each gradient's largest
-magnitude: another framework's f32 sums), ``gradcheck`` of
+magnitude: another framework's f32 sums), at the kernel's segment and
+sub-chunk and at other chunkings, the kernel's geometry
+(``rwkv6_scan.backward_geometry``: the shared-memory budget and the
+scratch the wrapper allocates), ``gradcheck`` of
 ``kernels.ops.WKV6Function`` in f64, the ``Function`` on the CPU against
 autograd, and the dispatch of ``ops.wkv6``: the ``Function`` only when
 autograd records the call on a CUDA tensor (run here through stubs that
@@ -89,11 +92,82 @@ def test_plain_backward_equals_jax_grad(shape):
     _within(got, want, 1e-4)
 
 
-def test_plain_backward_does_not_depend_on_its_chunk():
-    xs = [torch.from_numpy(x) for x in _inputs(2, 37, 2, 8, seed=3)]
-    a = ref.wkv6_backward(*xs)
-    for steps in (1, 5, 37, 64):
-        _within(ref.wkv6_backward(*xs, steps=steps), a, 1e-6)
+# (seg, sub, S): the kernel's pair at S no multiple of either and at
+# S = 1; one-level (seg = sub) and finer pairs; segments of one step
+CHUNKINGS = [(64, 8, 37), (64, 8, 1), (64, 8, 130), (8, 8, 37), (6, 3, 37),
+             (20, 5, 37), (16, 4, 1), (1, 1, 13)]
+
+
+@pytest.mark.parametrize("seg,sub,S", CHUNKINGS)
+def test_plain_backward_does_not_depend_on_its_chunk(seg, sub, S):
+    """Every (seg, sub) chunking of the plain backward is the gradient:
+    against autograd (1e-5) and ``jax.grad`` (1e-4) at the file's
+    tolerances."""
+    xs = _inputs(2, S, 2, 8, seed=3)
+    got = ref.wkv6_backward(*(torch.from_numpy(x) for x in xs), seg=seg,
+                            sub=sub)
+    _within(got, _autograd(xs), 1e-5)
+    jxs = [jnp.asarray(x) for x in xs]
+
+    def loss(r, k, v, w, u):
+        return jnp.sum(JW.wkv_scan(r, k, v, w, u)[0] * jxs[5])
+
+    _within(got, jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*jxs[:5]), 1e-4)
+
+
+def test_plain_backward_refuses_a_segment_not_of_whole_sub_chunks():
+    xs = [torch.from_numpy(x) for x in _inputs(1, 4, 1, 4, seed=3)]
+    for seg, sub in ((12, 8), (4, 8), (8, 0)):
+        with pytest.raises(ValueError, match="multiple"):
+            ref.wkv6_backward(*xs, seg=seg, sub=sub)
+
+
+@pytest.mark.parametrize("hs", rs.HEAD_SIZES)
+def test_backward_geometry(hs):
+    """The backward kernel's shape, as ``csrc/rwkv6_scan.cu``'s
+    ``BwdShape`` sets it: whole warps, a row's lanes inside one warp, at
+    most one store item a thread, the kernel's own sub-chunk and segment,
+    a block's shared memory within the card's 227 KB (the slots, the
+    input ring, the column partials and the row sums), registers for
+    sub-chunk states of 16 floats a thread, and the checkpoint scratch
+    the wrapper allocates: one state (slice) a segment but the last."""
+    g = rs.backward_geometry(hs)
+    assert (g["sub"], g["seg"]) == (rs.BWD_SUB, rs.BWD_SEG)
+    assert ref.wkv6_backward.__defaults__ == (rs.BWD_SEG, rs.BWD_SUB)
+    assert g["slices"] * g["slice_rows"] == hs
+    lanes = hs // g["cols"]
+    assert lanes <= 32 and 32 % lanes == 0
+    assert g["threads"] % 32 == 0
+    assert g["threads"] == g["slice_rows"] // g["rows"] * lanes
+    assert g["sub"] * hs // 4 <= g["threads"]
+    assert g["rows"] * g["cols"] <= 16
+    assert g["smem_bytes"] <= rs.SMEM_LIMIT
+    slots = g["seg"] // g["sub"] * g["slice_rows"] * hs
+    assert g["smem_bytes"] > 4 * slots
+    assert g["stages"] - 1 < g["seg"] // g["sub"]
+    for B, S, H in ((2, 4096, 64), (1, 1, 3), (2, 64, 2), (1, 65, 2),
+                    (3, 203, 1)):
+        want = B * H * (-(-S // rs.BWD_SEG) - 1) * g["slice_rows"] * hs
+        assert rs.backward_geometry(hs, B, S, H)["scratch_floats"] == want
+        kept = rs._backward_scratch(B, S, H, hs, "cpu")
+        assert kept.dtype == torch.float32 and kept.numel() == max(want, 1)
+
+
+def test_backward_geometry_at_the_path_shape():
+    """hs 64 (rwkv6-7b): 256 threads of 4 x 4, the 8 sub-chunk states of a
+    thread in 128 registers, 8 slots of 16 KB and 226 KB in all; 134 MB
+    of checkpoints at (2, 4096, 64), where the old kernel kept 537 MB and
+    a 34 MB per-block scratch of one state a step; hs 128 in four slices
+    of 32 rows, within 227 KB."""
+    g = rs.backward_geometry(64, 2, 4096, 64)
+    assert (g["threads"], g["rows"], g["cols"], g["slices"]) == (256, 4, 4, 1)
+    assert g["smem_bytes"] == 231_424 <= rs.SMEM_LIMIT
+    assert 4 * g["scratch_floats"] == 132_120_576
+    g = rs.backward_geometry(128)
+    assert (g["slices"], g["slice_rows"], g["threads"]) == (4, 32, 256)
+    assert g["smem_bytes"] == 228_352 <= rs.SMEM_LIMIT
+    with pytest.raises(ValueError, match="head size"):
+        rs.backward_geometry(48)
 
 
 def test_plain_backward_where_w_is_zero():
