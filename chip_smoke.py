@@ -134,6 +134,19 @@ after:
     edges, the training shape, and a control that must fail), its
     geometry against ``rwkv6_scan.backward_geometry``, and timed beside
     the forward at the training shape;
+  * the dry-run path (after training, before the snapshot phase): the
+    multi-pod dry-run's ``trace_cell`` (``launch/dryrun.py``) on a (1, 1)
+    mesh of its fake process group for smollm-135m ``train_4k`` at B=4,
+    llama3.2-3b ``decode_32k`` at B=8 (30 GB of cache) and rwkv6-7b
+    ``train_4k`` at B=2 on two layers, traced on the host by a
+    subprocess started first (``--dryruns``) as the port's own step (no
+    shard env, no unroll knob), then each step run for real on the card
+    as a user runs it (``dryrun_vs_card``): FLOPs equal to
+    ``FlopCounterMode``'s, argument bytes equal, the peak within
+    ``PEAK_RTOL``, no roofline bound above the profiled device time;
+    ``remat_on_card``: rwkv6-7b's gradient with remat equal to it
+    without, ``wkv6`` recomputed once per layer; and three production
+    cells of the dry-run (``dryrun_cells``), which must end ``ok``;
   * the sharded path (right after the main path): the main path's
     requests on ``ShardedServeEngine`` over (1, 1), (2, 1) and (2, 2)
     meshes of logical ranks on the card, each rank on its own step
@@ -163,6 +176,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -463,6 +477,25 @@ WKV_BWD_TOL = 1e-4
 # in 20 steps to gate on); host against device AdamW for
 # TRAIN_PARITY_STEPS steps each
 SMOLLM_TRAIN = dict(global_batch=8, seq_len=2048, steps=20)
+# the dry-run against the card: (arch, shape cell, batch, layers) traced on
+# a (1, 1) mesh and run for real; the production cells traced on the host
+DRYRUN_CARD_CELLS = [("smollm-135m", "train_4k", 4, None),
+                     ("llama3.2-3b", "decode_32k", 8, None),
+                     ("rwkv6-7b", "train_4k", 2, 2)]
+DRYRUN_CELLS = [("qwen2.5-14b", "decode_32k", "pod"),
+                ("mixtral-8x7b", "train_4k", "multipod"),
+                ("rwkv6-7b", "prefill_32k", "pod")]
+# the caching allocator's largest rounding of one tensor: 512 bytes in the
+# small pool, and a large block keeps a remainder under 1 MiB unsplit
+ALLOC_ROUND = 1 << 20
+# predicted peak against max_memory_allocated (relative), set from the
+# readings of the design as it stands (H100 80GB HBM3, 700 W; PERF.md)
+PEAK_RTOL = 0.02
+DRYRUN_WAIT_S = 900
+# remat on the card: rwkv6-7b's gradient, and a smollm-135m step
+REMAT_RWKV = (2, 4096)
+REMAT_TOL = 1e-6
+REMAT_SMOLLM = (8, 2048)
 SMOLLM_WARMUP, SMOLLM_LR = 2, 1e-3
 TRAIN_PARITY_STEPS = 3
 # rwkv6-7b at full width (d_model 4096, 64 heads of 64, vocab 65536) with
@@ -1953,6 +1986,310 @@ def rwkv_grad_phase() -> dict:
     del params, got, want
     torch.cuda.empty_cache()
     return out
+
+
+def cell_api(arch: str, layers: int | None, device: str):
+    """The arch's full-width api on ``device``, its depth cut to
+    ``layers`` when given (rwkv6-7b, the gradient check's two layers)."""
+    from repro_torch.models import registry
+    api = registry.build(arch, smoke=False, device=device)
+    if layers is None:
+        return api
+    if api.family != "ssm":
+        fail(f"cell_api cuts only rwkv6-7b's depth, not {arch}'s")
+    return registry._rwkv_api(arch, dataclasses.replace(
+        api.cfg, num_layers=layers), device)
+
+
+def dryrun_predictions() -> dict:
+    """The dry-run's side of ``dryrun_vs_card`` and the ``dryrun_cells``
+    (run in the ``--dryruns`` subprocess, on the host only): each
+    DRYRUN_CARD_CELLS cell traced on a (1, 1) mesh of the fake process
+    group (the port's own step: no shard env, no unroll knob), and each
+    DRYRUN_CELLS cell on its production mesh."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import device_mesh
+    mesh = device_mesh((1, 1), ("data", "model"))
+    card = []
+    for arch, shape, B, layers in DRYRUN_CARD_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.trace_cell(cell_api(arch, layers, "cpu"), shape, mesh,
+                                remat=True, unroll=False, batch_override=B)
+        card.append({"arch": arch, "shape": shape, "batch": B,
+                     "layers": layers, "trace_s": time.perf_counter() - t0,
+                     **{k: rec[k] for k in ("cost_analysis",
+                                            "memory_analysis",
+                                            "collectives")}})
+    cells = []
+    for arch, shape, mk in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, mk, save=False)
+        rec.pop("traceback", None)
+        cells.append(rec)
+    return {"card": card, "cells": cells}
+
+
+def dryruns(path: str) -> int:
+    """``--dryruns``: ``dryrun_predictions`` as JSON (a subprocess that
+    cannot see the card, started beside the card's work; at a lower
+    priority, so that it takes no host time from the card's phases)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    os.nice(10)
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    out = dryrun_predictions()
+    out["seconds"] = time.perf_counter() - t0
+    Path(path).write_text(json.dumps(out))
+    return 0
+
+
+def start_dryruns() -> tuple:
+    path = ROOT / "build" / "dryruns.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--dryruns", str(path)], env=env)
+    return proc, path
+
+
+def wait_dryruns(proc_path: tuple) -> dict:
+    proc, path = proc_path
+    rc = proc.wait(timeout=DRYRUN_WAIT_S)
+    if rc != 0 or not path.exists():
+        fail(f"the dry-run subprocess exited {rc}")
+    return json.loads(path.read_text())
+
+
+def cell_args(api, shape: str, B: int) -> tuple:
+    """Real arguments of the cell's step on the card: weights from a
+    CUDA generator, tokens and labels from a seeded generator, the decode
+    cache from ``init_cache`` at the cell's depth, every row at its last
+    position; AdamW's moments for a train cell."""
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_init
+    cell = registry.SHAPES[shape]
+    S = cell.seq_len
+    g = torch.Generator("cuda").manual_seed(0)
+    params = api.init(g)
+    V = api.cfg.vocab
+
+    def ints(*shape_):
+        return torch.randint(0, V, shape_, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    if cell.kind == "decode":
+        cache = api.init_cache(B, S)
+        pos = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+        return (params, cache, ints(B), pos)
+    batch = {"tokens": ints(B, S), "labels": ints(B, S)}
+    if cell.kind == "prefill":
+        return (params, batch)
+    return (params, adamw_init(params), batch)
+
+
+def dryrun_vs_card(pred: list) -> list:
+    """Each DRYRUN_CARD_CELLS cell's step run for real on the card, on the
+    arguments the dry-run traced as fake tensors, as a user runs it
+    (remat for train; no shard env and no unroll knob, as the dry-run
+    traces a (1, 1) mesh): the FLOPs ``FlopCounterMode`` counts on the
+    card equal the dry-run's count (the ``wkv6`` ops through their
+    formulas); the argument bytes
+    the tensors requested equal the prediction, and the bytes the
+    allocator holds for them equal it within ``ALLOC_ROUND`` a tensor; the
+    peak (``max_memory_allocated`` over the allocation before
+    the arguments) within ``PEAK_RTOL`` of the predicted peak; and the
+    roofline's lower bound, the larger of the FLOPs over the bf16 dense
+    peak and the argument bytes over the HBM rate, at most the profiled
+    device time of the step (a bound above it is a counting fault)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import roofline
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import registry, runconfig
+    from repro_torch.models.layers import tree_leaves
+    rows = []
+    for (arch, shape, B, layers), p in zip(DRYRUN_CARD_CELLS, pred):
+        kind = registry.SHAPES[shape].kind
+        api = cell_api(arch, layers, "cuda")
+        # garbage of earlier phases collected now, not freed by a
+        # collection during the measured step (that once lowered the peak
+        # over the base by 7.9 GB); the collector stays on in the step, as
+        # it is while the dry-run traces it (with it off, rwkv6-7b's peak
+        # read 6.9 % above the prediction)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        base_req = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        args = cell_args(api, shape, B)
+        torch.cuda.synchronize()
+        arg_bytes = torch.cuda.memory_allocated() - base
+        requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        n_args = sum(1 for a in args for _ in (
+            tree_leaves(a) if isinstance(a, dict) else [a]))
+        step = {"train": steps_lib.make_train_step,
+                "prefill": steps_lib.make_prefill_step,
+                "decode": steps_lib.make_serve_step}[kind](api)
+
+        def run():
+            with runconfig.options(remat=kind == "train"):
+                return step(*args)
+
+        run()                  # a first call: lazy initialisation out of
+        reset_all_launches()   # the counted one
+        with FlopCounterMode(display=False) as fc:
+            out = run()
+        launches = all_launches()
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        ops, dev_ms = profile_once(lambda: run())
+        flops = fc.get_total_flops()
+        want_flops = p["cost_analysis"]["global_flops"]
+        ma = p["memory_analysis"]
+        compute_ms = flops / roofline.PEAK_FLOPS * 1e3
+        args_ms = ma["argument_size_in_bytes"] / roofline.HBM_BW * 1e3
+        upper_ms = p["cost_analysis"]["bytes accessed"] / roofline.HBM_BW \
+            * 1e3
+        row = {"arch": arch, "shape": shape, "batch": B, "layers": layers,
+               "flops_card": flops, "flops_dryrun": want_flops,
+               "flops_by_op_card": {str(k): v for k, v in
+                                    fc.get_flop_counts()["Global"].items()},
+               "flops_by_op_dryrun": p["cost_analysis"][
+                   "global_flops_by_op"],
+               "arg_bytes_card": arg_bytes,
+               "arg_bytes_dryrun": ma["argument_size_in_bytes"],
+               "arg_requested_bytes_card": requested - base_req,
+               "arg_tensors": n_args, "peak_bytes_card": peak,
+               "peak_bytes_dryrun": ma["peak_bytes"],
+               "peak_ratio": peak / ma["peak_bytes"],
+               "compute_term_ms": compute_ms, "args_memory_term_ms": args_ms,
+               "bytes_accessed_term_ms": upper_ms,
+               "device_ms": dev_ms, "device_ops": ops,
+               "trace_s": p["trace_s"], "launches": launches,
+               "card": gpu_line()}
+        print(json.dumps({"dryrun_vs_card": row}), flush=True)
+        if flops != want_flops:
+            fail(f"{arch} {shape}: FlopCounterMode counts {flops} FLOPs on "
+                 f"the card, the dry-run {want_flops}")
+        if requested - base_req != ma["argument_size_in_bytes"] \
+                or abs(arg_bytes - ma["argument_size_in_bytes"]) \
+                > ALLOC_ROUND * n_args:
+            fail(f"{arch} {shape}: the arguments requested "
+                 f"{requested - base_req} bytes and hold {arg_bytes} on the "
+                 f"card, the dry-run predicted "
+                 f"{ma['argument_size_in_bytes']}")
+        if not abs(peak / ma["peak_bytes"] - 1) <= PEAK_RTOL:
+            fail(f"{arch} {shape}: peak {peak} bytes on the card against "
+                 f"{ma['peak_bytes']} predicted (limit {PEAK_RTOL})")
+        if max(compute_ms, args_ms) > dev_ms:
+            fail(f"{arch} {shape}: the roofline bound "
+                 f"{max(compute_ms, args_ms)} ms is above the measured "
+                 f"{dev_ms} ms: a counting fault")
+        rows.append(row)
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def remat_on_card() -> dict:
+    """Remat on the card: rwkv6-7b's gradient at RWKV_GRAD_LAYERS layers,
+    (B, S) = REMAT_RWKV, f32 weights, TF32 off, with ``runconfig``'s
+    remat and without: every leaf within REMAT_TOL of its largest
+    magnitude (expected bit-equal: the recomputed forward launches the
+    same kernel on the same inputs); ``wkv6`` launched 2 x layers with
+    remat (the recompute) and layers without, ``wkv6_backward`` layers
+    both ways. Then smollm-135m FULL at (B, S) = REMAT_SMOLLM, one loss
+    and gradient with remat and one without: equal losses, and the peak
+    GB and step ms of each recorded."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import layers as nn
+    from repro_torch.models import registry, runconfig
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S = REMAT_RWKV
+    api = rwkv_model(RWKV_GRAD_LAYERS, torch.float32)
+    L = api.cfg.num_layers
+    params = api.init(torch.Generator("cuda").manual_seed(2))
+    batch = train_batch(api, B, S, 2)
+    got = {}
+    for remat in (True, False):
+        reset_all_launches()
+        with runconfig.options(remat=remat):
+            loss, _, grads = value_and_grad(api.loss_fn, params, batch,
+                                            torch.float32)
+        torch.cuda.synchronize()
+        got[remat] = (loss, grads, all_launches())
+    worst, where = 0.0, None
+    for (path, a), b in zip(leaf_paths(got[True][1]),
+                            nn.tree_leaves(got[False][1])):
+        share = (a - b).abs().max().item() / max(b.abs().max().item(),
+                                                 1e-30)
+        if share > worst:
+            worst, where = share, path
+    lw = {k: got[k][2] for k in got}
+    if not worst <= REMAT_TOL:
+        fail(f"rwkv6-7b: remat moved the gradient of {where} by {worst} of "
+             f"its largest magnitude (limit {REMAT_TOL})")
+    if (lw[True]["wkv6"], lw[False]["wkv6"]) != (2 * L, L) \
+            or lw[True]["wkv6_backward"] != L \
+            or lw[False]["wkv6_backward"] != L:
+        fail(f"rwkv6-7b remat launches {lw}: want wkv6 {2 * L} with remat, "
+             f"{L} without, wkv6_backward {L} both ways")
+    rwkv = {"layers": L, "batch": B, "seq": S, "worst_leaf_share": worst,
+            "worst_leaf": where, "bit_equal": worst == 0.0,
+            "loss": {str(k): got[k][0].item() for k in got},
+            "launches": {"remat": lw[True], "no_remat": lw[False]}}
+    del params, got
+    torch.cuda.empty_cache()
+    # the process's own setting back: the snapshot phase after this one
+    # serves the main path's tokens, whose f32 score products TF32 would
+    # round otherwise (its tokens changed so once)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    api = registry.build("smollm-135m", smoke=False, device="cuda")
+    params = api.init(torch.Generator("cuda").manual_seed(3))
+    batch = train_batch(api, *REMAT_SMOLLM, 3)
+    smollm = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with runconfig.options(remat=remat):
+            loss, _, grads = value_and_grad(api.loss_fn, params, batch,
+                                            torch.bfloat16)
+        torch.cuda.synchronize()
+        smollm[str(remat)] = {
+            "loss": loss.item(), "step_ms": (time.perf_counter() - t0) * 1e3,
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        del grads
+    if smollm["True"]["loss"] != smollm["False"]["loss"]:
+        fail(f"smollm-135m: remat changed the loss: {smollm}")
+    out = {"rwkv6": rwkv, "smollm": {"batch": REMAT_SMOLLM[0],
+                                     "seq": REMAT_SMOLLM[1], **smollm},
+           "card": gpu_line()}
+    print(json.dumps({"remat_on_card": out}), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_cells(cells: list) -> list:
+    """The production dry-run of DRYRUN_CELLS on the card machine's host
+    (the ``--dryruns`` subprocess): each must end ``ok``."""
+    rows = [{k: r.get(k) for k in ("arch", "shape", "mesh", "status",
+                                   "error", "cost_analysis", "collectives",
+                                   "memory_analysis", "total_s")}
+            for r in cells]
+    print(json.dumps({"dryrun_cells": rows}), flush=True)
+    for r in rows:
+        if r["status"] != "ok":
+            fail(f"dry-run {r['arch']} {r['shape']} {r['mesh']}: "
+                 f"{r['status']} {r['error']}")
+    return rows
 
 
 def rwkv_f32_logits(params, cfg, tokens) -> dict:
@@ -3966,20 +4303,24 @@ def ptxas_usage(log: str) -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--cpu-sims"]:
         return cpu_sims(sys.argv[2])
+    if sys.argv[1:2] == ["--dryruns"]:
+        return dryruns(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     cpu = start_cpu_sims()
+    dry = start_dryruns()
     try:
-        return card_main(cpu)
+        return card_main(cpu, dry)
     finally:
-        if cpu[0].poll() is None:
-            cpu[0].kill()
-        cpu[0].wait()
+        for proc, _ in (cpu, dry):
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
 
 
-def card_main(cpu: tuple) -> int:
+def card_main(cpu: tuple, dry: tuple) -> int:
 
     print(f"card: {gpu_line()}", flush=True)
     # wall seconds of each phase, printed before the kernels line
@@ -4197,6 +4538,27 @@ def card_main(cpu: tuple) -> int:
     wkv_bwd_row["rwkv_train_step_ms"] = step_ms
     wkv_bwd_row["share_of_rwkv_train_step"] = \
         wkv_bwd_row["launches_per_step"] * wkv_bwd_row["ms"] / step_ms
+    # the dry-run against the card, remat on the card, and the production
+    # dry-run cells (traced on the host beside the card's work)
+    predicted = wait_dryruns(dry)
+    mark("dryrun_wait")
+    vs_card = dryrun_vs_card(predicted["card"])
+    mark("dryrun_vs_card")
+    remat = remat_on_card()
+    mark("remat_on_card")
+    dryrun_cells(predicted["cells"])
+    mark("dryrun_cells")
+    rwkv_cell = vs_card[2]["launches"]
+    wkv_row["launches_remat"] = {
+        "gradient_remat": remat["rwkv6"]["launches"]["remat"]["wkv6"],
+        "gradient_no_remat": remat["rwkv6"]["launches"]["no_remat"]["wkv6"],
+        "dryrun_vs_card_train_step": rwkv_cell["wkv6"]}
+    wkv_bwd_row["launches_remat"] = {
+        "gradient_remat":
+            remat["rwkv6"]["launches"]["remat"]["wkv6_backward"],
+        "gradient_no_remat":
+            remat["rwkv6"]["launches"]["no_remat"]["wkv6_backward"],
+        "dryrun_vs_card_train_step": rwkv_cell["wkv6_backward"]}
     kernels.append(wkv_bwd_row)
     # after every profile: with it earlier in the process, the profiler
     # lost device events of rwkv6-7b's decode-step profiles (PERF.md)

@@ -1,6 +1,16 @@
-"""The ``data x model`` device mesh of sharded serving (port of
-``repro/launch/mesh.py``'s ``make_debug_mesh``, ``data_axes`` and
-``axis_size``).
+"""Device meshes (port of ``repro/launch/mesh.py``): the ``data x model``
+mesh of sharded serving (``make_debug_mesh``), the dry-run's production
+meshes (``make_production_mesh``, ``abstract_mesh``), ``data_axes`` and
+``axis_size``.
+
+The production meshes are ``torch.distributed`` ``DeviceMesh``es on a
+fake process group (``fake_world``: backend ``"fake"``, this process rank
+0 of 512; collectives return at once and move nothing), the port's
+counterpart of the reference's 512 placeholder host devices. A process
+has one default group, so the group is made once with 512 ranks, and the
+16 x 16 pod mesh is a sub-mesh over its first 256; a smaller mesh (a
+test's (2, 2), the card's (1, 1)) is one over its first ranks. Only a
+call creates the group, never an import.
 
 A ``Mesh`` is a (data, model) grid of ``torch.device``s. A device may
 appear more than once: each entry is one rank, and ranks on one device
@@ -16,6 +26,10 @@ import warnings
 
 import numpy as np
 import torch
+
+# {axis name: size} of a Mesh, an AbstractMesh or a DeviceMesh (whose own
+# ``shape`` is a tuple)
+from repro_torch.models.runconfig import mesh_shape  # noqa: F401
 
 
 class Mesh:
@@ -76,13 +90,85 @@ def make_debug_mesh(model: int = 1, *, devices=None) -> Mesh:
     return Mesh(grid)
 
 
+def axis_names(mesh) -> tuple[str, ...]:
+    """The axis names of a ``Mesh``, an ``AbstractMesh`` or a
+    ``DeviceMesh``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names) if names is not None else tuple(mesh.axis_names)
+
+
 def data_axes(mesh) -> tuple[str, ...]:
     """The batch-sharding axes for this mesh (pod folds into data)."""
-    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+    return ("pod", "data") if "pod" in axis_names(mesh) else ("data",)
 
 
 def axis_size(mesh, axes: tuple[str, ...]) -> int:
+    shape = mesh_shape(mesh)
     size = 1
     for a in axes:
-        size *= mesh.shape[a]
+        size *= shape[a]
     return size
+
+
+class AbstractMesh:
+    """A device-free mesh: axis sizes and names only, for resolving
+    sharding specs with no process group at all."""
+
+    def __init__(self, shape: tuple[int, ...], axes: tuple[str, ...]):
+        if len(shape) != len(axes):
+            raise ValueError(f"{len(shape)} sizes for {len(axes)} axes")
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(axes, shape))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def abstract_mesh(shape: tuple[int, ...], axes: tuple[str, ...]):
+    """The reference's ``abstract_mesh``: a shape-only mesh."""
+    return AbstractMesh(shape, axes)
+
+
+#: ranks of the fake process group: the two-pod mesh's 2 x 16 x 16
+FAKE_WORLD = 512
+
+
+def fake_world(world: int = FAKE_WORLD) -> None:
+    """Make the default process group a fake one of ``world`` ranks (this
+    process rank 0) unless one exists. Raises if an existing group is
+    not fake or has fewer ranks."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        if (dist.get_backend() != "fake"
+                or dist.get_world_size() < world):
+            raise RuntimeError(
+                f"a {dist.get_backend()} process group of "
+                f"{dist.get_world_size()} ranks exists; the dry-run needs "
+                f"a fake group of at least {world}")
+        return
+    # importing it registers the "fake" backend with c10d
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
+def device_mesh(shape: tuple[int, ...], axes: tuple[str, ...]):
+    """A ``DeviceMesh`` named ``axes`` over the first prod(shape) ranks of
+    the fake group (made if need be). Its tensors are fake CPU tensors:
+    the device type only names the group's backend."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = int(np.prod(shape))
+    fake_world(max(FAKE_WORLD, n))
+    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16 x 16 single pod (256 ranks) or 2 x 16 x 16 two-pod (512 ranks),
+    a ``DeviceMesh`` on the fake group."""
+    if multi_pod:
+        return device_mesh((2, 16, 16), ("pod", "data", "model"))
+    return device_mesh((16, 16), ("data", "model"))

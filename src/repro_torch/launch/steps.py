@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import runconfig
 from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models.registry import ModelAPI
 from repro_torch.optim import AdamWConfig, adamw_update
@@ -68,7 +69,9 @@ def make_grads_step(api: ModelAPI, optim: AdamWConfig | None = None):
 def make_prefill_step(api: ModelAPI):
     def prefill_step(params, batch):
         logits = api.forward(params, batch)
-        next_logits = logits[:, -1, :].float()
+        # whole rows for the argmax (a no-op outside a dry-run's shard env)
+        next_logits = runconfig.constrain(logits[:, -1, :].float(),
+                                          ("dp", None))
         return torch.argmax(next_logits, dim=-1), next_logits
 
     return prefill_step
@@ -77,6 +80,7 @@ def make_prefill_step(api: ModelAPI):
 def make_serve_step(api: ModelAPI):
     def serve_step(params, cache, tokens, pos):
         logits, cache = api.decode_step(params, cache, tokens, pos)
-        return torch.argmax(logits.float(), dim=-1), cache
+        logits = runconfig.constrain(logits.float(), ("dp", None))
+        return torch.argmax(logits, dim=-1), cache
 
     return serve_step

@@ -9,8 +9,9 @@ decoder positions), no RoPE, LayerNorm with biases, QKV biases and a GELU
 MLP.
 
 Layers are stacked with a leading L axis per side, so the reference's
-parameter tree converts leaf for leaf (``params_from_jax``); Python loops
-over the layers take the place of ``lax.scan``.
+parameter tree converts leaf for leaf (``params_from_jax``);
+``runconfig.scan`` (a Python loop over the layers, each under a
+checkpoint when remat is on) takes the place of ``lax.scan``.
 
 Serving: ``decode_step`` attends one token against the per-layer self
 K/V rings, written in place (``cache_kind="ring"``), and the static cross
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as nn
+from repro_torch.models import runconfig
 from repro_torch.models.layers import AttnSpec
 
 
@@ -149,7 +151,8 @@ def _self_attend(block, x, spec: AttnSpec):
     B, S, _ = x.shape
     q, k, v = _qkv(block["attn"], nn.layernorm(block["ln"], x), spec)
     att = nn.attention(q, k, v, spec)
-    return x + att.reshape(B, S, -1) @ block["attn"]["wo"]
+    return runconfig.constrain(x + att.reshape(B, S, -1)
+                               @ block["attn"]["wo"], ("dp", None, None))
 
 
 def _cross_attend(block, x, enc_k, enc_v, spec: AttnSpec):
@@ -160,7 +163,8 @@ def _cross_attend(block, x, enc_k, enc_v, spec: AttnSpec):
     q = q.reshape(B, Sq, spec.num_heads, spec.head_dim)
     out = nn.attention(q, enc_k, enc_v,
                        dataclasses.replace(spec, causal=False))
-    return x + out.reshape(B, Sq, -1) @ block["attn"]["wo"]
+    return runconfig.constrain(x + out.reshape(B, Sq, -1)
+                               @ block["attn"]["wo"], ("dp", None, None))
 
 
 def _cross_kv(block, enc_out, spec: AttnSpec):
@@ -179,11 +183,15 @@ def encode(params, cfg: EncDecConfig, frames):
     spec = cfg.attn_spec(causal=False)
     x = (frames.to(cfg.dtype)
          + sinusoid_positions(S, D, device=frames.device).to(cfg.dtype))
-    for i in range(cfg.num_layers):
-        layer = nn.tree_map(lambda t: t[i], params["enc_layers"])
+
+    def body(x, layer):
+        x = runconfig.constrain(x, ("dp", None, None))
+        layer = runconfig.gather(layer)
         x = _self_attend(layer["self"], x, spec)
         h = nn.layernorm(layer["ln_mlp"], x)
-        x = x + nn.gelu_mlp(layer["mlp"], h)
+        return x + nn.gelu_mlp(layer["mlp"], h), None
+
+    x, _ = runconfig.scan(body, x, params["enc_layers"])
     return nn.layernorm(params["ln_enc"], x)
 
 
@@ -191,18 +199,23 @@ def decode_train(params, cfg: EncDecConfig, tokens, enc_out):
     """Teacher-forced decoder. tokens: (B, S_dec) -> logits."""
     S = tokens.shape[1]
     spec = cfg.attn_spec(causal=True)
-    x = (params["embed"][tokens.long()]
+    x = (nn.embed_lookup(runconfig.gather(params["embed"]), tokens)
          + sinusoid_positions(S, cfg.d_model,
                               device=tokens.device).to(cfg.dtype))
-    for i in range(cfg.num_layers):
-        layer = nn.tree_map(lambda t: t[i], params["dec_layers"])
+
+    def body(x, layer):
+        x = runconfig.constrain(x, ("dp", None, None))
+        layer = runconfig.gather(layer)
         x = _self_attend(layer["self"], x, spec)
         ck, cv = _cross_kv(layer["cross"], enc_out, spec)
         x = _cross_attend(layer["cross"], x, ck, cv, spec)
         h = nn.layernorm(layer["ln_mlp"], x)
-        x = x + nn.gelu_mlp(layer["mlp"], h)
+        return x + nn.gelu_mlp(layer["mlp"], h), None
+
+    x, _ = runconfig.scan(body, x, params["dec_layers"])
     x = nn.layernorm(params["ln_dec"], x)
-    return x @ params["embed"].T
+    return runconfig.constrain(x @ runconfig.gather(params["embed"]).T,
+                               ("dp", None, "tp"))
 
 
 def forward(params, cfg: EncDecConfig, tokens, frames):
@@ -257,21 +270,26 @@ def decode_step(params, cfg: EncDecConfig, cache, tokens, pos):
     the static cross K/V. tokens, pos: (B,). Returns (logits (B, V),
     cache)."""
     spec = cfg.attn_spec(causal=True)
-    x = params["embed"][tokens.long()][:, None, :]
+    x = nn.embed_lookup(runconfig.gather(params["embed"]),
+                        tokens)[:, None, :]
     x = x + _sinusoid(pos.float(), cfg.d_model)[:, None, :].to(cfg.dtype)
     # no RoPE (theta 0 sentinel); the real positions still drive the ring
     # slot and the causal mask
     nospec = dataclasses.replace(spec, rope_theta=0.0)
-    for i in range(cfg.num_layers):
-        layer = nn.tree_map(lambda t: t[i], params["dec_layers"])
-        ring = {k: v[i] for k, v in cache["self"].items()}
+
+    def body(x, scanned):
+        layer, ring, ck, cv = scanned
+        x = runconfig.constrain(x, ("dp", None, None))
+        layer = runconfig.gather(layer)
         h = nn.layernorm(layer["self"]["ln"], x)
         y, _ = nn.attn_decode_step(layer["self"]["attn"], h, ring, pos,
                                    nospec)
         x = x + y
-        x = _cross_attend(layer["cross"], x, cache["cross_k"][i],
-                          cache["cross_v"][i], spec)
+        x = _cross_attend(layer["cross"], x, ck, cv, spec)
         h = nn.layernorm(layer["ln_mlp"], x)
-        x = x + nn.gelu_mlp(layer["mlp"], h)
+        return x + nn.gelu_mlp(layer["mlp"], h), None
+
+    x, _ = runconfig.scan(body, x, (params["dec_layers"], cache["self"],
+                                    cache["cross_k"], cache["cross_v"]))
     x = nn.layernorm(params["ln_dec"], x)
-    return x[:, 0, :] @ params["embed"].T, cache
+    return x[:, 0, :] @ runconfig.gather(params["embed"]).T, cache

@@ -6,7 +6,8 @@ Every ``attn_every``-th layer first applies the shared transformer block
 (one set of weights reused at every application), then its own Mamba2
 block. Layers are stacked with a leading L axis, as the reference's
 ``vmap`` stacks them, so its parameter tree converts leaf for leaf
-(``params_from_jax``); a Python loop over the layers takes the place of
+(``params_from_jax``); ``runconfig.scan`` (a Python loop over the layers,
+each under a checkpoint when remat is on) takes the place of
 ``lax.scan``, and a Python ``if`` on the static layer index the place of
 its ``lax.cond``.
 
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as nn
+from repro_torch.models import runconfig
 from repro_torch.models import ssm
 from repro_torch.models.layers import AttnSpec
 
@@ -128,8 +130,10 @@ def params_from_jax(np_tree: dict, cfg: HybridConfig,
 
 
 def _apply_shared(shared, x, spec: AttnSpec, positions):
+    shared = runconfig.gather(shared)
     h = nn.rmsnorm(shared["ln1"], x)
-    x = x + nn.attn_apply(shared["attn"], h, spec, positions)
+    x = runconfig.constrain(x + nn.attn_apply(shared["attn"], h, spec,
+                                              positions), ("dp", None, None))
     h = nn.rmsnorm(shared["ln2"], x)
     return x + nn.swiglu(shared["mlp"], h)
 
@@ -137,18 +141,26 @@ def _apply_shared(shared, x, spec: AttnSpec, positions):
 def forward(params, cfg: HybridConfig, tokens):
     """tokens: (B, S) int -> logits (B, S, V), aux (the f32 scalar 0)."""
     B, S = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = nn.embed_lookup(runconfig.gather(params["embed"]), tokens)
     spec, mspec = cfg.attn_spec(), cfg.mamba_spec()
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    for i in range(cfg.num_layers):
-        layer = nn.tree_map(lambda t: t[i], params["layers"])
+    positions = torch.arange(S, device=x.device)[None, :]
+
+    def body(x, scanned):
+        i, layer = scanned
+        x = runconfig.constrain(x, ("dp", None, None))
+        layer = runconfig.gather(layer)
         if cfg.applies_attn(i):
-            x = _apply_shared(params["shared"], x, spec, positions)
+            x = runconfig.constrain(
+                _apply_shared(params["shared"], x, spec, positions),
+                ("dp", None, None))
         h = nn.rmsnorm(layer["ln"], x)
         y, _ = ssm.mamba2_apply(layer["block"], h, mspec)
-        x = x + y
-    x = nn.rmsnorm(params["ln_f"], x)
-    logits = x @ params["head"]
+        return x + y, None
+
+    x, _ = runconfig.scan(body, x, (range(cfg.num_layers), params["layers"]))
+    x = nn.rmsnorm(params["ln_f"], runconfig.constrain(x, ("dp", None, None)))
+    logits = runconfig.constrain(x @ runconfig.gather(params["head"]),
+                                 ("dp", None, "tp"))
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -180,27 +192,29 @@ def decode_step(params, cfg: HybridConfig, cache, tokens, pos):
     ``"attn"`` rings, written in place."""
     spec, mspec = cfg.attn_spec(), cfg.mamba_spec()
     shared = params["shared"]
-    x = params["embed"][tokens.long()][:, None, :]
-    conv, state = [], []
-    for i in range(cfg.num_layers):
-        layer = nn.tree_map(lambda t: t[i], params["layers"])
+    x = nn.embed_lookup(runconfig.gather(params["embed"]),
+                        tokens)[:, None, :]
+
+    def body(x, scanned):
+        i, layer, mcache = scanned
+        x = runconfig.constrain(x, ("dp", None, None))
+        layer = runconfig.gather(layer)
         if cfg.applies_attn(i):
             app = i // cfg.attn_every
             ring = {k: v[app] for k, v in cache["attn"].items()}
-            h = nn.rmsnorm(shared["ln1"], x)
-            y, _ = nn.attn_decode_step(shared["attn"], h, ring, pos, spec)
-            x = x + y
-            h = nn.rmsnorm(shared["ln2"], x)
-            x = x + nn.swiglu(shared["mlp"], h)
+            sh = runconfig.gather(shared)
+            h = nn.rmsnorm(sh["ln1"], x)
+            y, _ = nn.attn_decode_step(sh["attn"], h, ring, pos, spec)
+            x = runconfig.constrain(x + y, ("dp", None, None))
+            h = nn.rmsnorm(sh["ln2"], x)
+            x = runconfig.constrain(x + nn.swiglu(sh["mlp"], h),
+                                    ("dp", None, None))
         h = nn.rmsnorm(layer["ln"], x)
-        y, new = ssm.mamba2_apply(
-            layer["block"], h, mspec,
-            {k: v[i] for k, v in cache["mamba"].items()})
-        x = x + y
-        conv.append(new["conv"])
-        state.append(new["ssm"])
-    x = nn.rmsnorm(params["ln_f"], x)
-    logits = x[:, 0, :] @ params["head"]
-    return logits, {"mamba": {"conv": torch.stack(conv),
-                              "ssm": torch.stack(state)},
-                    "attn": cache["attn"]}
+        y, new = ssm.mamba2_apply(layer["block"], h, mspec, mcache)
+        return x + y, new
+
+    x, mamba = runconfig.scan(
+        body, x, (range(cfg.num_layers), params["layers"], cache["mamba"]))
+    x = nn.rmsnorm(params["ln_f"], runconfig.constrain(x, ("dp", None, None)))
+    logits = x[:, 0, :] @ runconfig.gather(params["head"])
+    return logits, {"mamba": mamba, "attn": cache["attn"]}

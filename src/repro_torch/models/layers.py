@@ -15,6 +15,13 @@ around each q block does.
 
 The decode cache is updated in place (the reference donates it to the
 jitted step and rebinds the result).
+
+Inside a dry-run's shard env (``runconfig.options(shard_env=...)``, the
+tensors DTensors) a few functions take another path that DTensor can
+shard: ``embed_lookup``, ``attention`` (``_sdpa_heads``), the decode
+ring's write, ``moe_apply`` / ``moe_aux_loss`` (``local_map``) and
+``cross_entropy``; each computes the same function. Outside an env they
+are the plain code, bit for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ import math
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.models import runconfig
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -58,6 +68,18 @@ def layernorm_init(lead: tuple, dim: int, dtype=DEFAULT_DTYPE,
                    device="cpu") -> dict:
     return {"scale": torch.ones((*lead, dim), dtype=dtype, device=device),
             "bias": torch.zeros((*lead, dim), dtype=dtype, device=device)}
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; in a shard env ``F.embedding`` of the table
+    gathered whole (DTensor's vocab-parallel lookup leaves a masked
+    partial sum whose gradient meets the tied unembedding's plain partial
+    sum, a pair DTensor cannot add), its output sharded like the
+    tokens."""
+    if runconfig.shard_env() is not None:
+        x = F.embedding(tokens.long(), runconfig.replicate(table))
+        return runconfig.constrain(x, ("dp",) + (None,) * (x.dim() - 1))
+    return table[tokens.long()]
 
 
 def tree_map(fn, tree, *rest):
@@ -201,6 +223,41 @@ def _sdpa_block(q, k, v, bias) -> torch.Tensor:
     return out.reshape(B, Sq, H, hd)
 
 
+def _sdpa_heads(q, k, v, bias) -> torch.Tensor:
+    """``_sdpa_block`` for a shard env (the dry-run's DTensors): each kv
+    head repeated to its G query heads and laid out like them, heads over
+    the tensor axis, so no view splits a sharded head dim into (KV, G)
+    (with 8 kv heads on a 16-wide axis that split would gather every
+    query head on every rank). The same products and sums, plus those of
+    the zero heads that pad an uneven head count."""
+    B, Sq, H, hd = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k = torch.repeat_interleave(k, G, dim=2)
+        v = torch.repeat_interleave(v, G, dim=2)
+    tp = runconfig.tp_size() or 1
+    Hp = -(-H // tp) * tp
+    whole = ("dp", None, None, None)
+    if H >= tp and Hp != H:
+        # heads that do not divide the tensor axis (24 or 40 on 16) are
+        # padded with zero heads to a multiple of it, as GSPMD pads them:
+        # DTensor's views of an unevenly split head dim fail (torch 2.11).
+        # The zeros are a slice of the tensor times 0 (``F.pad``'s rule
+        # fails there, and a new zeros tensor would be whole on every rank)
+        q, k, v = (runconfig.constrain(t, whole) for t in (q, k, v))
+        q, k, v = (torch.cat([t, t.narrow(2, 0, Hp - H) * 0], dim=2)
+                   for t in (q, k, v))
+    heads = ("dp", None, "tp", None)
+    q, k, v = (runconfig.constrain(t, heads) for t in (q, k, v))
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float())
+    scores = scores * (1.0 / math.sqrt(hd)) + bias[:, None, :, :]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
+    if Hp != H and H >= tp:
+        out = runconfig.constrain(out, whole)[:, :, :H]
+    return out
+
+
 def attention(q, k, v, spec: AttnSpec, q_positions=None,
               kv_positions=None) -> torch.Tensor:
     """Chunked attention: a loop over q blocks, dense over kv (masked).
@@ -213,18 +270,26 @@ def attention(q, k, v, spec: AttnSpec, q_positions=None,
         q_positions = torch.arange(Sq, device=q.device)[None, :]
     if kv_positions is None:
         kv_positions = torch.arange(Skv, device=q.device)[None, :]
+    # one query (a decode step's cross-attention) keeps the grouped form:
+    # its kv, sharded over the sequence, are never gathered there
+    sdpa = (_sdpa_heads if runconfig.shard_env() is not None and Sq > 1
+            else _sdpa_block)
     qb = min(spec.q_block, Sq)
     if Sq % qb != 0:                      # fall back to one dense block
-        return _sdpa_block(q, k, v,
-                           _mask_bias(q_positions, kv_positions, spec))
+        return sdpa(q, k, v, _mask_bias(q_positions, kv_positions, spec))
+    if runconfig.unroll_enabled():
+        # the reference's dry-run cap of 8 q blocks (widened blocks, the
+        # same rows: every row's softmax still spans all of kv)
+        while Sq // qb > 8:
+            qb *= 2
     # under autograd, recompute each block's scores and probabilities in
     # the backward pass instead of keeping (B, qb, H, Skv) f32 residuals
     # per block of every layer (the reference's jax.checkpoint)
     remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                          or v.requires_grad)
     block = (functools.partial(torch.utils.checkpoint.checkpoint,
-                               _sdpa_block, use_reentrant=False)
-             if remat else _sdpa_block)
+                               sdpa, use_reentrant=False)
+             if remat else sdpa)
     return torch.cat([
         block(q[:, i:i + qb], k, v,
               _mask_bias(q_positions[:, i:i + qb], kv_positions, spec))
@@ -242,11 +307,15 @@ def attn_apply(params, x, spec: AttnSpec, positions=None,
     v = x @ params["wv"]
     if spec.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, spec.num_heads, spec.head_dim)
-    k = k.reshape(B, S, spec.num_kv_heads, spec.head_dim)
-    v = v.reshape(B, S, spec.num_kv_heads, spec.head_dim)
+    heads = ("dp", None, "tp", None)
+    q = runconfig.constrain(
+        q.reshape(B, S, spec.num_heads, spec.head_dim), heads)
+    k = runconfig.constrain(
+        k.reshape(B, S, spec.num_kv_heads, spec.head_dim), heads)
+    v = runconfig.constrain(
+        v.reshape(B, S, spec.num_kv_heads, spec.head_dim), heads)
     if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        positions = torch.arange(S, device=x.device)[None, :]
     q = rope(q, positions, spec.rope_theta)
     k = rope(k, positions, spec.rope_theta)
     if use_kernel:
@@ -282,10 +351,20 @@ def attn_decode_step(params, x, cache, pos, spec: AttnSpec):
     k = rope(k, pos[:, None], spec.rope_theta)
 
     slot = (pos % W).long()
-    bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0]
-    cache["v"][bidx, slot] = v[:, 0]
-    cache["pos"][bidx, slot] = pos.to(torch.int32)
+    if runconfig.shard_env() is not None:
+        # a sharded ring (the dry-run's DTensors) takes a whole-ring
+        # select and a copy: DTensor has no in-place scatter that keeps
+        # the ring's batch and sequence sharding
+        hit = torch.arange(W, device=x.device)[None, :] == slot[:, None]
+        for name, new in (("k", k), ("v", v), ("pos", pos[:, None])):
+            ring = cache[name]
+            sel = hit.reshape(*hit.shape, *([1] * (ring.dim() - 2)))
+            ring.copy_(torch.where(sel, new.to(ring.dtype), ring))
+    else:
+        bidx = torch.arange(B, device=x.device)
+        cache["k"][bidx, slot] = k[:, 0]
+        cache["v"][bidx, slot] = v[:, 0]
+        cache["pos"][bidx, slot] = pos.to(torch.int32)
 
     kv_pos = cache["pos"]  # (B, W) absolute positions; empty slots are -1
     bias_valid = torch.where(kv_pos >= 0, 0.0, NEG_INF)[:, None, :]
@@ -319,7 +398,8 @@ def swiglu_init(gen: torch.Generator, lead: tuple, d_model: int, d_ff: int,
 def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     g = F.silu((x @ params["w_gate"]).float())
     u = (x @ params["w_up"]).float()
-    return (g * u).to(x.dtype) @ params["w_down"]
+    h = runconfig.constrain((g * u).to(x.dtype), ("dp", None, "tp"))
+    return h @ params["w_down"]
 
 
 def gelu_mlp_init(gen: torch.Generator, lead: tuple, d_model: int,
@@ -335,7 +415,8 @@ def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
     asks for it (``F.gelu``'s default is the exact erf form)."""
     h = F.gelu((x @ params["w_in"] + params["b_in"]).float(),
                approximate="tanh")
-    return h.to(x.dtype) @ params["w_out"] + params["b_out"]
+    h = runconfig.constrain(h.to(x.dtype), ("dp", None, "tp"))
+    return h @ params["w_out"] + params["b_out"]
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +438,8 @@ def _expert_stack(gen: torch.Generator, lead: tuple, experts: int,
     layers would be 30 GB in f32)."""
     out = torch.empty((*lead, experts, in_dim, out_dim), dtype=dtype,
                       device=gen.device)
+    if is_fake(out):           # shapes only (the dry-run): nothing to draw
+        return out
     flat = out.view(-1, in_dim, out_dim)
     for i in range(flat.shape[0]):
         flat[i] = dense_init(gen, (), in_dim, out_dim, dtype)
@@ -446,36 +529,94 @@ def moe_apply(params, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
     """
     B, S, D = x.shape
     T = B * S
-    E, K = spec.num_experts, spec.top_k
     C = moe_capacity(T, spec)
-    dev = x.device
-    xt = x.reshape(T, D)
+    if runconfig.shard_env() is not None:
+        return _moe_sharded(params, x, spec, C)
+    out = _moe_local(spec, C, x.dtype, x.reshape(T, D), params["router"],
+                     params["w_gate"], params["w_up"], params["w_down"], 0)
+    return out.to(x.dtype).reshape(B, S, D)
 
-    logits = xt.float() @ params["router"]                      # (T, E)
-    gate_vals, expert_idx = top_k(logits, K)                    # (T, K)
+
+def _moe_local(spec: MoESpec, C: int, x_dtype, xt, router, w_gate, w_up,
+               w_down, first_expert):
+    """The dispatch of ``moe_apply``: tokens ``xt`` (T, D) routed over all
+    E experts, the slots of experts [first_expert, first_expert + E_l)
+    (the ``w_*`` stacks given) kept up to capacity ``C``, the f32 combine
+    of those experts' outputs (T, D). With every expert (``first_expert``
+    0, E_l = E) it is the whole block; in a shard env it is one rank's
+    share (its experts or ffn columns, its share of the capacity), a
+    partial sum over the ranks that hold the rest."""
+    T, D = xt.shape
+    K = spec.top_k
+    E_l = w_gate.shape[0]
+    dev = xt.device
+    gate_vals, expert_idx = top_k(xt.float() @ router, K)
     gates = torch.softmax(gate_vals, dim=-1)
-
-    flat_e = expert_idx.reshape(-1)                             # (N,)
+    flat_e = expert_idx.reshape(-1)
     N = T * K
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
     rank = torch.arange(N, device=dev) - torch.searchsorted(se, se)
     keep = rank < C
-    dest = torch.where(keep, se * C + rank, E * C)              # E*C = dropped
-
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
+    if E_l < spec.num_experts:        # this rank holds some experts only
+        keep = keep & (se >= first_expert) & (se < first_expert + E_l)
+        se = se - first_expert
+    dest = torch.where(keep, se * C + rank, E_l * C)
+    buf = torch.zeros((E_l * C + 1, D), dtype=x_dtype, device=dev)
     buf[dest] = xt[order // K]
-    buf = buf[:E * C].reshape(E, C, D)
-    g = F.silu(_bmm_f32(buf, params["w_gate"]))
-    u = _bmm_f32(buf, params["w_up"])
-    eout = torch.bmm((g * u).to(x.dtype), params["w_down"]).reshape(E * C, D)
-
-    # back to the (T, K) slot layout: slot i of the flat layout sits at
-    # position pos[i] of the sorted one
+    buf = buf[:E_l * C].reshape(E_l, C, D)
+    g = F.silu(_bmm_f32(buf, w_gate))
+    u = _bmm_f32(buf, w_up)
+    eout = torch.bmm((g * u).to(x_dtype), w_down).reshape(E_l * C, D)
     pos = torch.empty_like(order)
     pos[order] = torch.arange(N, device=dev)
     pos = pos.reshape(T, K)
-    out = moe_combine(eout, dest[pos], keep[pos], gates, expert_idx)
+    return moe_combine(eout, dest[pos], keep[pos], gates, expert_idx)
+
+
+def _moe_sharded(params, x, spec: MoESpec, C: int):
+    """``moe_apply`` on DTensors (the dry-run): each rank dispatches its
+    own tokens (batch-sharded over the data axes, whole over the tensor
+    axis) into its share of the reference's (E, C, D) buffer, laid out as
+    the reference constrains it: expert-sharded mode (E >= tp, kimi-k2)
+    keeps its E/tp experts' slots, few-expert mode (mixtral) every
+    expert's slots with its ffn columns; capacity sharded over the data
+    axes that divide C. The combined output is a partial sum over the
+    tensor axis (``local_map``; DTensor has no rule for the dispatch's
+    sorts and searches). The routing is per rank, where the reference's
+    is global: the costs, shapes and layouts are the reference's, the
+    slot a token lands in may not be."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, dp, tp = runconfig.shard_env()
+    names = list(mesh.mesh_dim_names)
+    B, S, D = x.shape
+    E = spec.num_experts
+    tp_n = runconfig.tp_size() or 1
+    expert_mode = tp is not None and E >= tp_n
+    xt = runconfig.constrain(x.reshape(B * S, D), ("dp", None))
+    cap_axes = runconfig.resolve(("dp",), (C,), mesh, dp, tp)[0] or ()
+    C_l = C // math.prod(mesh.size(names.index(a)) for a in cap_axes)
+    first = (mesh.get_local_rank(tp) * (E // tp_n)
+             if expert_mode else 0)
+
+    def on(dim_by_axis):
+        return [dim_by_axis.get(n, Replicate()) for n in names]
+
+    tok = on({a: Shard(0) for a in runconfig.placements_axes(xt)})
+    w_up = on({tp: Shard(0 if expert_mode else 2)} if tp else {})
+    w_down = on({tp: Shard(0 if expert_mode else 1)} if tp else {})
+    out_pl = [Partial() if n == tp else tok[i] for i, n in enumerate(names)]
+    fn = local_map(
+        lambda *a: _moe_local(spec, C_l, x.dtype, *a, first),
+        out_placements=out_pl,
+        in_placements=(tok, on({}), w_up, w_up, w_down),
+        device_mesh=mesh, redistribute_inputs=True)
+    with runconfig.local_region(mesh.size()):
+        out = fn(xt, params["router"], params["w_gate"], params["w_up"],
+                 params["w_down"])
+    out = runconfig.constrain(out, ("dp", None))
     return out.to(x.dtype).reshape(B, S, D)
 
 
@@ -507,6 +648,8 @@ def moe_aux_loss(params, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
     with f_e the share of tokens that picked expert e among their top-k
     (a count over T) and p_e the mean router probability."""
     D = x.shape[-1]
+    if runconfig.shard_env() is not None:
+        return _moe_aux_sharded(params, x, spec)
     logits = x.reshape(-1, D).float() @ params["router"]
     T, E = logits.shape
     probs = torch.softmax(logits, dim=-1)
@@ -517,6 +660,43 @@ def moe_aux_loss(params, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
     return E * torch.sum(frac * torch.mean(probs, dim=0))
 
 
+def _moe_aux_local(spec: MoESpec, xt, router):
+    """A rank's share of ``moe_aux_loss``: the (E,) counts of its tokens'
+    top-k picks and the (E,) sums of their router probabilities."""
+    logits = xt.float() @ router
+    E = logits.shape[1]
+    idx = top_k(logits, spec.top_k)[1].reshape(-1)
+    counts = torch.zeros(E, dtype=torch.float32, device=xt.device)
+    counts = counts.index_add_(0, idx, torch.ones(
+        idx.shape, dtype=torch.float32, device=xt.device))
+    return counts, torch.sum(torch.softmax(logits, dim=-1), dim=0)
+
+
+def _moe_aux_sharded(params, x, spec: MoESpec):
+    """``moe_aux_loss`` on DTensors: per-rank counts and probability sums
+    (``local_map``), partial sums over the data axes, then the
+    reference's formula over all T tokens."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = runconfig.shard_env()[0]
+    names = list(mesh.mesh_dim_names)
+    D = x.shape[-1]
+    xt = runconfig.constrain(x.reshape(-1, D), ("dp", None))
+    T = xt.shape[0]
+    axes = runconfig.placements_axes(xt)
+    tok = [Shard(0) if n in axes else Replicate() for n in names]
+    part = [Partial() if n in axes else Replicate() for n in names]
+    fn = local_map(lambda a, r: _moe_aux_local(spec, a, r),
+                   out_placements=(part, part),
+                   in_placements=(tok, [Replicate()] * len(names)),
+                   device_mesh=mesh, redistribute_inputs=True)
+    with runconfig.local_region(mesh.size()):
+        counts, probsum = fn(xt, params["router"])
+    E = spec.num_experts
+    return E * torch.sum((counts / T) * (probsum / T))
+
+
 # ---------------------------------------------------------------------------
 # loss
 # ---------------------------------------------------------------------------
@@ -525,7 +705,20 @@ def cross_entropy(logits, labels, ignore_id: int = -1) -> torch.Tensor:
     """Mean token cross-entropy in f32 over the labels that are not
     ``ignore_id``. logits: (B,S,V); labels: (B,S)."""
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long().clamp(min=0)[..., None])[..., 0]
+    if runconfig.shard_env() is not None:
+        # vocab-sharded logits (the dry-run): a logsumexp from a local max
+        # and sum, each reduced once, and the reference's gather-free gold
+        # logit, a masked sum that reduces locally (a gather would collect
+        # the whole (B, S, V) tensor); both equal the plain forms
+        m = torch.amax(lf, dim=-1, keepdim=True).detach()
+        logz = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+        vocab = runconfig.along(torch.arange(lf.shape[-1], device=lf.device),
+                                lf, lf.dim() - 1)
+        onehot = vocab == labels.long().clamp(min=0)[..., None]
+        gold = torch.sum(torch.where(onehot, lf, 0.0), dim=-1)
+    else:
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1,
+                            labels.long().clamp(min=0)[..., None])[..., 0]
     mask = (labels != ignore_id).float()
     return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)

@@ -11,6 +11,16 @@ close over the arch config and the device. The dense, hybrid and
 encoder-decoder ``forward`` and ``loss_fn`` run the chunked plain
 attention, as the reference's do; RWKV6's run the WKV recurrence through
 ``kernels.ops.wkv6`` (the CUDA kernel for a CUDA tensor).
+
+The dry-run's shape cells (``SHAPES``; ``runnable``, ``skip_reason``,
+``cells``) and its stand-ins: ``param_shapes`` (the parameter tree's
+shapes and dtypes, from ``init`` under ``FakeTensorMode``, once per
+config) and ``input_specs`` (fake tensors for a cell's step inputs):
+
+  train_4k     seq 4,096   gbatch 256   -> train_step
+  prefill_32k  seq 32,768  gbatch 32    -> serve prefill (full forward)
+  decode_32k   seq 32,768  gbatch 128   -> serve_step (1 token, 32k cache)
+  long_500k    seq 524,288 gbatch 1     -> serve_step; SSM/SWA/hybrid only
 """
 
 from __future__ import annotations
@@ -22,11 +32,28 @@ import torch
 
 from repro_torch import configs as configs_lib
 from repro_torch.device import resolve_device
-from repro_torch.models import encdec, hybrid, rwkv6, transformer
+from repro_torch.models import encdec, hybrid, layers, rwkv6, transformer
 from repro_torch.models.encdec import EncDecConfig
 from repro_torch.models.hybrid import HybridConfig
 from repro_torch.models.rwkv6 import RWKVConfig
 from repro_torch.models.transformer import LMConfig
+
+class ShapeCell(NamedTuple):
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str              # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+# archs whose decode state stays bounded at 500k tokens
+LONG_CONTEXT_OK = frozenset({"rwkv6-7b", "mixtral-8x7b", "zamba2-7b"})
 
 FAMILY = {"smollm-135m": "dense", "stablelm-3b": "dense",
           "qwen2.5-14b": "dense", "llama3.2-3b": "dense", "rwkv6-7b": "ssm",
@@ -160,3 +187,103 @@ def build(arch_id: str, smoke: bool = False,
     if isinstance(cfg, EncDecConfig):
         return _encdec_api(arch_id, cfg, device)
     raise TypeError(f"unknown config type {type(cfg)} for {arch_id}")
+
+
+# ---------------------------------------------------------------------------
+# shape cells
+# ---------------------------------------------------------------------------
+
+def runnable(arch_id: str, shape: str) -> bool:
+    """Whether this (arch x shape) cell is assigned to run."""
+    if shape == "long_500k":
+        return arch_id in LONG_CONTEXT_OK
+    return True
+
+
+def skip_reason(arch_id: str, shape: str) -> str | None:
+    if runnable(arch_id, shape):
+        return None
+    return ("full-attention arch: O(S^2) prefill / unbounded KV at 500k; "
+            "run only for SSM/SWA/hybrid archs per assignment")
+
+
+def cells(shapes: tuple[str, ...] = tuple(SHAPES)) -> list[tuple[str, str]]:
+    """All runnable (arch, shape) cells, in table order."""
+    return [(a, s) for a in configs_lib.ARCH_IDS for s in shapes
+            if runnable(a, s)]
+
+
+# ---------------------------------------------------------------------------
+# stand-ins (fake tensors; nothing allocated)
+# ---------------------------------------------------------------------------
+
+class TensorSpec(NamedTuple):
+    """A leaf's shape and dtype (``jax.ShapeDtypeStruct``'s role)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+@functools.lru_cache(maxsize=None)
+def _param_shapes(arch_id: str, cfg) -> dict:
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    init = {LMConfig: transformer.init, RWKVConfig: rwkv6.init,
+            HybridConfig: hybrid.init, EncDecConfig: encdec.init}[type(cfg)]
+    with FakeTensorMode():
+        params = init(torch.Generator(), cfg=cfg, device="cpu")
+    return layers.tree_map(
+        lambda t: TensorSpec(tuple(t.shape), t.dtype), params)
+
+
+def param_shapes(api: ModelAPI) -> dict:
+    """The parameter tree of ``api.init`` as ``TensorSpec`` leaves: init
+    run once per config under ``FakeTensorMode`` (the draws give fake
+    tensors; kimi-k2's expert stacks skip their per-matrix draws) and
+    kept for the process."""
+    return _param_shapes(api.arch_id, api.cfg)
+
+
+def fake_like(tree, mode=None):
+    """Fake tensors of ``tree``'s ``TensorSpec`` shapes and dtypes in
+    ``mode`` (a ``FakeTensorMode``; a new one if None)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mode = mode or FakeTensorMode()
+    with mode:
+        return layers.tree_map(
+            lambda s: torch.empty(s.shape, dtype=s.dtype), tree)
+
+
+def input_specs(api: ModelAPI, shape_name: str,
+                batch_override: int | None = None, mode=None) -> dict:
+    """Inputs for the cell's step function, as fake tensors (in ``mode``,
+    a ``FakeTensorMode``; a new one if None) on the api's device.
+
+    train/prefill: {"tokens", "labels"[, "frames"|"prefix_embeds"]}
+    decode: {"cache", "tokens", "pos"}, the cache from ``init_cache``
+    under fake mode (no allocation)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cell = SHAPES[shape_name]
+    B = batch_override or cell.global_batch
+    S = cell.seq_len
+    cfg = api.cfg
+    tok = torch.int32
+    mode = mode or FakeTensorMode()
+    with mode:
+        def sds(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=api.device)
+
+        if cell.kind in ("train", "prefill"):
+            specs: dict[str, Any] = {"tokens": sds((B, S), tok)}
+            if cell.kind == "train":
+                specs["labels"] = sds((B, S), tok)
+            if api.family == "audio":
+                specs["frames"] = sds((B, S, cfg.d_model), torch.bfloat16)
+            if api.family == "vlm":
+                specs["prefix_embeds"] = sds((B, cfg.prefix_len,
+                                              cfg.d_model), torch.bfloat16)
+            return specs
+        # decode: one new token against a seq_len-deep cache
+        return {"cache": api.init_cache(B, S), "tokens": sds((B,), tok),
+                "pos": sds((B,), tok)}

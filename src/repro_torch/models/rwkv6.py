@@ -9,7 +9,8 @@ channel-mix block (token-shifted squared-ReLU MLP).
 Layers are stacked with a leading L axis, as the reference's ``vmap``
 stacks them, so its parameter tree converts leaf for leaf
 (``params_from_jax``); projections are (in, out) and the model computes
-``x @ W``; a Python loop over the layers takes the place of ``lax.scan``.
+``x @ W``; ``runconfig.scan`` (a Python loop over the layers, each
+under a checkpoint when remat is on) takes the place of ``lax.scan``.
 
 Where the WKV recurrence runs:
   * ``forward`` / ``loss_fn`` (prefill, loss evaluation): through
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as nn
+from repro_torch.models import runconfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,17 +225,24 @@ def forward(params, cfg: RWKVConfig, tokens, use_kernel: bool = True):
     """tokens: (B, S) int -> logits (B, S, V), aux (the f32 scalar 0).
 
     Any S: the recurrence takes the whole sequence as one chunk."""
-    x = nn.layernorm(params["ln_in"], params["embed"][tokens.long()])
-    for i in range(cfg.num_layers):
-        layer = nn.tree_map(lambda t: t[i], params["layers"])
+    x = nn.layernorm(params["ln_in"], nn.embed_lookup(
+        runconfig.gather(params["embed"]), tokens))
+
+    def body(x, layer):
+        x = runconfig.constrain(x, ("dp", None, None))
+        layer = runconfig.gather(layer)
         h = nn.layernorm(layer["ln1"], x)
         y, _ = _time_mix(layer["tm"], h, cfg, _token_shift(h), None,
                          use_kernel)
-        x = x + y
+        x = runconfig.constrain(x + y, ("dp", None, None))
         h = nn.layernorm(layer["ln2"], x)
-        x = x + _channel_mix(layer["cm"], h, _token_shift(h))
-    x = nn.layernorm(params["ln_f"], x)
-    logits = x @ params["head"]
+        return x + _channel_mix(layer["cm"], h, _token_shift(h)), None
+
+    x, _ = runconfig.scan(body, x, params["layers"])
+    x = nn.layernorm(params["ln_f"], runconfig.constrain(x, ("dp", None,
+                                                             None)))
+    logits = runconfig.constrain(x @ runconfig.gather(params["head"]),
+                                 ("dp", None, "tp"))
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -263,23 +272,26 @@ def init_cache(cfg: RWKVConfig, batch: int, cache_len: int = 0,
 def decode_step(params, cfg: RWKVConfig, cache, tokens, pos=None):
     """One decode step. tokens: (B,) int; ``pos`` is unused. Returns
     (logits (B, V), new cache); ``cache`` itself is not written."""
-    x = nn.layernorm(params["ln_in"],
-                     params["embed"][tokens.long()])[:, None, :]
-    wkv, tm_last, cm_last = [], [], []
-    for i in range(cfg.num_layers):
-        layer = nn.tree_map(lambda t: t[i], params["layers"])
+    x = nn.layernorm(params["ln_in"], nn.embed_lookup(
+        runconfig.gather(params["embed"]), tokens))[:, None, :]
+
+    def body(x, scanned):
+        layer, wkv_s, tm_last, cm_last = scanned
+        x = runconfig.constrain(x, ("dp", None, None))
+        layer = runconfig.gather(layer)
         h = nn.layernorm(layer["ln1"], x)
         y, new_wkv = _time_mix(layer["tm"], h, cfg,
-                               cache["tm_last"][i][:, None, :].to(h.dtype),
-                               cache["wkv"][i])
-        x = x + y
+                               tm_last[:, None, :].to(h.dtype), wkv_s)
+        x = runconfig.constrain(x + y, ("dp", None, None))
         h2 = nn.layernorm(layer["ln2"], x)
         x = x + _channel_mix(layer["cm"], h2,
-                             cache["cm_last"][i][:, None, :].to(h2.dtype))
-        wkv.append(new_wkv)
-        tm_last.append(h[:, 0])
-        cm_last.append(h2[:, 0])
-    x = nn.layernorm(params["ln_f"], x)
-    logits = x[:, 0, :] @ params["head"]
-    return logits, {"wkv": torch.stack(wkv), "tm_last": torch.stack(tm_last),
-                    "cm_last": torch.stack(cm_last)}
+                             cm_last[:, None, :].to(h2.dtype))
+        return x, (new_wkv, h[:, 0], h2[:, 0])
+
+    x, (wkv, tm_last, cm_last) = runconfig.scan(
+        body, x, (params["layers"], cache["wkv"], cache["tm_last"],
+                  cache["cm_last"]))
+    x = nn.layernorm(params["ln_f"], runconfig.constrain(x, ("dp", None,
+                                                             None)))
+    logits = x[:, 0, :] @ runconfig.gather(params["head"])
+    return logits, {"wkv": wkv, "tm_last": tm_last, "cm_last": cm_last}

@@ -8,7 +8,8 @@ stream, SiLU gating, grouped B/C. State h in R^{heads x head_dim x N}.
 The time recurrence is a Python loop over the sequence in f32 (the
 reference's ``lax.scan``) for the full sequence, and one O(1) state update
 at decode. No Pallas kernel is on this path in the reference, so none is
-here.
+here; the dry-run traces the loop as one ``repro_torch::ssd_scan`` op
+(``_ssd_scan``).
 
 ``mamba2_apply`` with a cache returns new ``conv`` and ``ssm`` leaves and
 never writes its input: the serving engine keeps the rows that did not
@@ -21,6 +22,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.models import layers as nn
 
@@ -109,19 +111,11 @@ def _split_proj(spec: Mamba2Spec, proj):
     return z, xbc, dt
 
 
-def _ssd_scan(spec: Mamba2Spec, xh, Bmat, Cmat, dt, A_log, D, state=None):
-    """The SSD recurrence, a loop over time in f32.
-
-    xh: (B, S, H, P); Bmat/Cmat: (B, S, G, N); dt: (B, S, H) post-softplus.
-    h <- exp(dt*A)*h + dt*(x (x) B);  y = h.C + D*x. Returns (y (B, S, H,
-    P), the final state (B, H, P, N))."""
-    Bsz, S, H, P = xh.shape
+def _ssd_loop(xh, Bmat, Cmat, dt, A_log, D, h):
+    """The SSD recurrence from state ``h``, a loop over time in f32."""
+    S, H = xh.shape[1], xh.shape[2]
     rep = H // Bmat.shape[2]
     A = -torch.exp(A_log)                            # (H,) negative
-    h = state
-    if h is None:
-        h = torch.zeros((Bsz, H, P, spec.d_state), dtype=torch.float32,
-                        device=xh.device)
     x, Bf, Cf = xh.float(), Bmat.float(), Cmat.float()
     ys = []
     for t in range(S):
@@ -135,6 +129,125 @@ def _ssd_scan(spec: Mamba2Spec, xh, Bmat, Cmat, dt, A_log, D, state=None):
         ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch) + D[None, :, None]
                   * x_t)
     return torch.stack(ys, dim=1), h
+
+
+def _ssd_scan(spec: Mamba2Spec, xh, Bmat, Cmat, dt, A_log, D, state=None):
+    """The SSD recurrence, a loop over time in f32.
+
+    xh: (B, S, H, P); Bmat/Cmat: (B, S, G, N); dt: (B, S, H) post-softplus.
+    h <- exp(dt*A)*h + dt*(x (x) B);  y = h.C + D*x. Returns (y (B, S, H,
+    P), the final state (B, H, P, N)).
+
+    A real tensor runs the loop itself (its numerics and autograd are the
+    model's). A DTensor or a fake tensor (the dry-run) goes through the
+    ``repro_torch::ssd_scan`` op instead: one op a layer with fake
+    shapes, a FLOP formula, a backward op and a DTensor sharding rule,
+    where the loop would take S Python steps of DTensor dispatch (hours
+    at ``prefill_32k``). The op's real implementation is the same loop,
+    and its backward the loop's vector-Jacobian product."""
+    h = state
+    if h is None:
+        h = torch.zeros((xh.shape[0], xh.shape[2], xh.shape[3],
+                         spec.d_state), dtype=torch.float32,
+                        device=xh.device)
+    from repro_torch.kernels.ops import _traced
+    if _traced(xh):
+        return torch.ops.repro_torch.ssd_scan(xh, Bmat, Cmat, dt, A_log, D,
+                                              h)
+    return _ssd_loop(xh, Bmat, Cmat, dt, A_log, D, h)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _ssd_scan_op(xh: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
+                 dt: torch.Tensor, A_log: torch.Tensor, D: torch.Tensor,
+                 state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    y, h = _ssd_loop(xh, Bmat, Cmat, dt, A_log, D, state)
+    return y, h.clone() if h is state else h
+
+
+@_ssd_scan_op.register_fake
+def _ssd_scan_fake(xh, Bmat, Cmat, dt, A_log, D, state):
+    return (xh.new_empty(xh.shape, dtype=torch.float32),
+            torch.empty_like(state))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_backward", mutates_args=())
+def _ssd_scan_backward_op(
+        xh: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
+        dt: torch.Tensor, A_log: torch.Tensor, D: torch.Tensor,
+        state: torch.Tensor, dy: torch.Tensor, dh: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor, torch.Tensor, torch.Tensor]:
+    _, vjp = torch.func.vjp(_ssd_loop, xh, Bmat, Cmat, dt, A_log, D, state)
+    return vjp((dy, dh))
+
+
+@_ssd_scan_backward_op.register_fake
+def _ssd_scan_backward_fake(xh, Bmat, Cmat, dt, A_log, D, state, dy, dh):
+    return tuple(torch.empty_like(t)
+                 for t in (xh, Bmat, Cmat, dt, A_log, D, state))
+
+
+def _ssd_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _ssd_backward(ctx, dy, dh):
+    saved = ctx.saved_tensors
+    y_like = saved[0].new_empty(saved[0].shape, dtype=torch.float32)
+    dy = torch.zeros_like(y_like) if dy is None else dy
+    dh = torch.zeros_like(saved[6]) if dh is None else dh
+    return torch.ops.repro_torch.ssd_scan_backward(*saved, dy, dh)
+
+
+torch.library.register_autograd("repro_torch::ssd_scan", _ssd_backward,
+                                setup_context=_ssd_setup)
+
+
+def ssd_flops(B: int, S: int, H: int, P: int, N: int) -> int:
+    """Operations of the recurrence: 6 per state element a step (decay,
+    the two products and the sum of the update, and the read-out's
+    product and sum) and 2 per output element (the skip)."""
+    return (6 * N + 2) * B * S * H * P
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _ssd_flop_formula(x_shape, *args, out_shape=None, **_kw):
+    return ssd_flops(*x_shape, args[5][-1])
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_backward)
+def _ssd_backward_flop_formula(x_shape, *args, out_shape=None, **_kw):
+    # twice the forward's: every product of the forward has two partials
+    return 2 * ssd_flops(*x_shape, args[5][-1])
+
+
+def register_sharding_rules(register_sharding) -> None:
+    """DTensor rules for the ``ssd_scan`` pair (``kernels.ops.
+    register_sharding_rules`` calls this): batch over the data axes, or
+    heads over the tensor axis when B and C have one group (every head
+    reads them whole), or replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    R, P = Replicate(), Partial()
+    S0, S1, S2 = Shard(0), Shard(1), Shard(2)
+
+    @register_sharding(torch.ops.repro_torch.ssd_scan.default)
+    def _fwd(xh, Bmat, Cmat, dt, A_log, D, state):
+        rules = [([R, R], [R] * 7),
+                 ([S0, S0], [S0] * 4 + [R, R, S0])]
+        if Bmat.shape[2] == 1:
+            rules.append(([S2, S1], [S2, R, R, S2, S0, S0, S1]))
+        return rules
+
+    @register_sharding(torch.ops.repro_torch.ssd_scan_backward.default)
+    def _bwd(xh, Bmat, Cmat, dt, A_log, D, state, dy, dh):
+        rules = [([R] * 7, [R] * 9),
+                 ([S0] * 4 + [P, P, S0], [S0] * 4 + [R, R, S0, S0, S0])]
+        if Bmat.shape[2] == 1:
+            rules.append(([S2, P, P, S2, S0, S0, S1],
+                          [S2, R, R, S2, S0, S0, S1, S2, S1]))
+        return rules
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -4,11 +4,14 @@ dense family, prefix-LM (paligemma) included, and the MoE family
 
 Layers are stacked with a leading L axis, as in the reference, so the
 reference's parameter tree converts leaf for leaf (``params_from_jax``);
-a Python loop over the layers takes the place of ``lax.scan``. Ported:
-the full-sequence ``forward`` (with ``use_kernel`` for the flash-attention
+``runconfig.scan`` (a Python loop over the layers, each under a
+checkpoint when remat is on) takes the place of ``lax.scan``, and
+``runconfig.constrain`` pins the activations' layout in a dry-run's
+shard env, at the reference's sites. Ported: the full-sequence
+``forward`` (with ``use_kernel`` for the flash-attention
 kernel and ``return_kv``; ``aux`` is the mean of the layers' MoE
 load-balancing losses, 0 for a dense config), ``loss_fn``, ``prefill``
-and ``decode_step``. Not ported: any gradient.
+and ``decode_step``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as nn
+from repro_torch.models import runconfig
 from repro_torch.models.layers import AttnSpec, MoESpec
 
 
@@ -146,7 +150,7 @@ def params_from_jax(np_tree: dict, cfg: LMConfig,
 # ---------------------------------------------------------------------------
 
 def _embed_tokens(params, cfg: LMConfig, tokens, prefix_embeds):
-    x = params["embed"][tokens.long()]
+    x = nn.embed_lookup(runconfig.gather(params["embed"]), tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -158,8 +162,8 @@ def _embed_tokens(params, cfg: LMConfig, tokens, prefix_embeds):
 
 def _unembed(params, cfg: LMConfig, x):
     if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+        return x @ runconfig.gather(params["embed"]).T
+    return x @ runconfig.gather(params["lm_head"])
 
 
 def _ffn(layer, cfg: LMConfig, h):
@@ -183,33 +187,40 @@ def forward(params, cfg: LMConfig, tokens, prefix_embeds=None,
     B, S = tokens.shape
     spec = cfg.attn_spec()
     x = _embed_tokens(params, cfg, tokens, prefix_embeds)
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    lp = params["layers"]
-    ks, vs, auxes = [], [], []
-    for i in range(cfg.num_layers):
-        layer = nn.tree_map(lambda t: t[i], lp)
+    positions = torch.arange(S, device=x.device)[None, :]
+
+    def body(x, layer):
+        x = runconfig.constrain(x, ("dp", None, None))
+        layer = runconfig.gather(layer)
         h = nn.rmsnorm(layer["ln1"], x)
+        kv = None
         if return_kv:
             kproj = h @ layer["attn"]["wk"]
             vproj = h @ layer["attn"]["wv"]
             if cfg.qkv_bias:
                 kproj = kproj + layer["attn"]["bk"]
                 vproj = vproj + layer["attn"]["bv"]
-            ks.append(nn.rope(kproj.reshape(B, S, spec.num_kv_heads,
-                                            spec.head_dim),
-                              positions, spec.rope_theta))
-            vs.append(vproj.reshape(B, S, spec.num_kv_heads, spec.head_dim))
-        x = x + nn.attn_apply(layer["attn"], h, spec, positions, use_kernel)
+            kv = (nn.rope(kproj.reshape(B, S, spec.num_kv_heads,
+                                        spec.head_dim),
+                          positions, spec.rope_theta),
+                  vproj.reshape(B, S, spec.num_kv_heads, spec.head_dim))
+        x = runconfig.constrain(
+            x + nn.attn_apply(layer["attn"], h, spec, positions, use_kernel),
+            ("dp", None, None))
         h = nn.rmsnorm(layer["ln2"], x)
         x = x + _ffn(layer, cfg, h)
-        if cfg.moe is not None:
-            auxes.append(nn.moe_aux_loss(layer["moe"], h, cfg.moe))
-    x = nn.rmsnorm(params["ln_f"], x)
-    logits = _unembed(params, cfg, x)
-    aux = (torch.mean(torch.stack(auxes)) if auxes else
+        aux = (nn.moe_aux_loss(layer["moe"], h, cfg.moe)
+               if cfg.moe is not None else None)
+        return x, (aux, kv)
+
+    x, (auxes, kvs) = runconfig.scan(body, x, params["layers"])
+    x = nn.rmsnorm(params["ln_f"], runconfig.constrain(x, ("dp", None, None)))
+    logits = runconfig.constrain(_unembed(params, cfg, x),
+                                 ("dp", None, "tp"))
+    aux = (torch.mean(auxes) if auxes is not None else
            torch.zeros((), dtype=torch.float32, device=x.device))
     if return_kv:
-        return logits, aux, (torch.stack(ks), torch.stack(vs))
+        return logits, aux, kvs
     return logits, aux
 
 
@@ -247,17 +258,22 @@ def decode_step(params, cfg: LMConfig, cache, tokens, pos):
     """
     spec = cfg.attn_spec(prefix_len=0)
     x = _embed_tokens(params, cfg, tokens[:, None], None)
-    lp = params["layers"]
-    for i in range(cfg.num_layers):
-        layer = nn.tree_map(lambda t: t[i], lp)
-        lcache = {k: v[i] for k, v in cache.items()}
+
+    def body(x, scanned):
+        layer, lcache = scanned
+        x = runconfig.constrain(x, ("dp", None, None))
+        layer = runconfig.gather(layer)
         h = nn.rmsnorm(layer["ln1"], x)
         y, _ = nn.attn_decode_step(layer["attn"], h, lcache, pos, spec)
-        x = x + y
+        x = runconfig.constrain(x + y, ("dp", None, None))
         h = nn.rmsnorm(layer["ln2"], x)
-        x = x + _ffn(layer, cfg, h)
-    x = nn.rmsnorm(params["ln_f"], x)
-    return _unembed(params, cfg, x[:, 0, :]), cache
+        return x + _ffn(layer, cfg, h), None
+
+    x, _ = runconfig.scan(body, x, (params["layers"], cache))
+    x = nn.rmsnorm(params["ln_f"], runconfig.constrain(x, ("dp", None, None)))
+    logits = runconfig.constrain(_unembed(params, cfg, x[:, 0, :]),
+                                 ("dp", "tp"))
+    return logits, cache
 
 
 def prefill(params, cfg: LMConfig, tokens, prefix_embeds=None,

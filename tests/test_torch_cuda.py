@@ -10,7 +10,9 @@ against its eager steps, a crashed graphed engine restored from its
 snapshots against its uncrashed twin, and training: the wkv6 backward
 kernel against its plain version, ``ops.wkv6`` through its autograd
 Function, the kernel wrappers refusing inputs that require grad, and
-one train step of mixtral-8x7b and of rwkv6-7b (SMOKE) on the card.
+one train step of mixtral-8x7b and of rwkv6-7b (SMOKE) on the card;
+the wkv6 custom ops' fake shapes and FLOP formula against the kernels,
+and remat keeping rwkv6's gradients while it recomputes wkv6.
 They skip where there is no CUDA device; on a machine with one, run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1046,3 +1048,71 @@ def test_rwkv_train_step_reaches_every_leaf_on_the_card(cuda):
         assert (a - b).abs().max() <= 1e-3 * b.abs().max()
     mu = got["layers"]["tm"]["mu"]
     assert (mu.abs().amax(dim=(0, 2)) > 0).all()
+
+
+def test_wkv6_ops_fake_shapes_and_flops_equal_the_kernels(cuda):
+    """The ``repro_torch::wkv6`` / ``wkv6_backward`` ops on the card: the
+    fake implementations give the kernels' output shapes and dtypes, and
+    ``FlopCounterMode`` counts each op's formula once per call, the same
+    count as on fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import rwkv6_scan as rs
+    shape = (2, 200, 3, 64)
+    x = _wkv_grad_inputs(shape, 11, cuda)
+    rs.reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        out = torch.ops.repro_torch.wkv6(*x[:5])
+        grads = torch.ops.repro_torch.wkv6_backward(*x)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES == {"wkv6": 1, "wkv6_backward": 1}
+    want = ops.wkv6_flops(*shape) + ops.wkv6_backward_flops(*shape)
+    assert fc.get_total_flops() == want
+    with FakeTensorMode() as mode:
+        fx = [mode.from_tensor(t) for t in x]
+        with FlopCounterMode(display=False) as ffc:
+            fout = torch.ops.repro_torch.wkv6(*fx[:5])
+            fgrads = torch.ops.repro_torch.wkv6_backward(*fx)
+    assert ffc.get_total_flops() == want
+    for a, b in zip((fout, *fgrads), (out, *grads)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert a.device == b.device
+
+
+def test_remat_keeps_rwkv6_gradients_and_recomputes_wkv6(cuda, monkeypatch):
+    """rwkv6-7b SMOKE in f32 on the card with ``runconfig``'s remat and
+    without: every gradient leaf within 1e-6 of its largest magnitude of
+    the other's (the recompute launches the same kernel on the same
+    inputs); ``wkv6`` launched 2 x layers with remat and layers without,
+    ``wkv6_backward`` layers both ways (``chip_smoke.remat_on_card``'s
+    gates)."""
+    import dataclasses
+
+    from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import layers as nn
+    from repro_torch.models import registry, runconfig
+    # TF32 off for this test only (monkeypatch puts the setting back)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    api = registry.build("rwkv6-7b", smoke=True, device="cuda")
+    cfg = dataclasses.replace(api.cfg, dtype=torch.float32)
+    api = registry._rwkv_api("rwkv6-7b", cfg, "cuda")
+    L = cfg.num_layers
+    params = api.init(torch.Generator("cuda").manual_seed(4))
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+             .to(cuda) for k in ("tokens", "labels")}
+    got = {}
+    for remat in (True, False):
+        rs.reset_launches()
+        with runconfig.options(remat=remat):
+            _, _, grads = value_and_grad(api.loss_fn, params, batch,
+                                         torch.float32)
+        torch.cuda.synchronize()
+        got[remat] = (grads, dict(rs.LAUNCHES))
+    assert got[True][1] == {"wkv6": 2 * L, "wkv6_backward": L}
+    assert got[False][1] == {"wkv6": L, "wkv6_backward": L}
+    for a, b in zip(nn.tree_leaves(got[True][0]),
+                    nn.tree_leaves(got[False][0])):
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max()
