@@ -134,6 +134,27 @@ after:
     edges, the training shape, and a control that must fail), its
     geometry against ``rwkv6_scan.backward_geometry``, and timed beside
     the forward at the training shape;
+  * training at full width for the other families (after the rwkv6-7b
+    phases, before the dry-run), each with no kernel launched (the
+    reference's training loss runs none), every loss finite and the first
+    step's gradient finite and non-zero on every leaf: mixtral-8x7b cut
+    to ``MIXTRAL_TRAIN_LAYERS`` layers with the host optimizer (its
+    moments pinned after a check of the host's RAM), then its first
+    layer's expert gradients through ``_BmmF32`` against the CPU's f32
+    product of the step's operands (``MOE_GRAD_COLUMNS`` of the ffn
+    columns) within ``BMM_F32_RTOL``, a control (the bf16 product)
+    beyond; zamba2-7b cut to two applications of its shared block, then
+    its f32 gradient at one application against the same step on the CPU
+    within ``ZAMBA_GRAD_TOL``, a control (the Mamba state zeroed halfway)
+    beyond; paligemma-3b (18 layers) and whisper-base FULL, device AdamW,
+    the loss falling;
+  * the examples (``repro_torch.examples``): each ``main`` on the card,
+    its closing line printed, ``duplex_kv_stream`` launched by
+    ``serve_offload`` and ``multi_tenant_serve`` (``l2_distance`` too),
+    ``duplex_tour``'s fused output held against the two halves and the
+    plain version, both routes timed; the serve CLI's ``--offload-demo``
+    (the deprecated ``OffloadedKVCache`` shim) on the card and on the
+    CPU, with equal reports;
   * the dry-run path (after training, before the snapshot phase): the
     multi-pod dry-run's ``trace_cell`` (``launch/dryrun.py``) on a (1, 1)
     mesh of its fake process group for smollm-135m ``train_4k`` at B=4,
@@ -514,6 +535,66 @@ RWKV_TRAIN_STEPS = 3
 RWKV_GRAD = (1, 512)
 RWKV_GRAD_LAYERS = 2
 RWKV_GRAD_TOL = 1e-3
+# training on the card at the published widths, depth cut only as far as
+# one card forces it (each cut in the line's ``reduced``); the training
+# loss runs no kernel in the reference (``loss_fn(..., use_kernel=False)``)
+# and launches none here. mixtral-8x7b with the host optimizer (the
+# paper's capacity case) at (B, S) = MIXTRAL_TRAIN: its 4096-token window
+# and the dry-run's train_4k. A layer is 1.4513 B parameters, 2.90 GB in
+# bf16: 5.80 GB a layer on the card with its bf16 gradients, and 11.61 GB
+# a layer of f32 moments in pinned host RAM (the untied 32000 x 4096
+# embedding and head add 0.52 GB, 2.10 GB of moments). The host's
+# MemAvailable read 96.3 GB at the rwkv6-7b training phase (PR 26's chip
+# calls, H100 80GB HBM3, 700 W): 0.6 of it, 57.8 GB, holds the moments of
+# 4 layers (48.5 GB), not of 5 (60.2 GB). On the card 4 layers are 12.1
+# GB of parameters, as much of gradients and of clipped gradients while
+# the optimizer runs, and its 64 MB chunks (the host optimizer streams a
+# leaf chunk by chunk; whole leaves took about ten f32 copies of the 7.5
+# GB expert stack, which held the cut to 2 layers); with the activations
+# at 4096 tokens the peak read 61.5 GB (chip call 1 of PR 27, H100 80GB
+# HBM3, 700 W), so the card would take a fifth layer, the host's RAM not
+MIXTRAL_TRAIN = (1, 4096)
+MIXTRAL_TRAIN_LAYERS = 4
+MIXTRAL_TRAIN_STEPS = 2
+MIXTRAL_CONTEXT = 32768        # the published context, for ``reduced``
+# zamba2-7b with device AdamW at (B, S) = ZAMBA_TRAIN (the SSD scan is a
+# Python loop under autograd, keeping a (B, H, P, N) f32 state per step
+# per layer, ~1.8 MB a step and 0.94 GB a layer at S = 512), cut to the
+# fewest layers that hold two applications of the shared attention block
+# (``attn_every`` 6): 12 of 81. Its step is
+# host-bound, ~306 K device operations in 7.3-9.8 s of wall at S = 512
+# (chip calls 1-2 of PR 27, H100 80GB HBM3, 700 W), so for the run's time
+# it takes 2 steps (cut from 3) at S = 256 (cut from its forward phase's
+# 512)
+ZAMBA_TRAIN = (1, 256)
+ZAMBA_TRAIN_LAYERS = 12
+ZAMBA_TRAIN_STEPS = 2
+ZAMBA_CONTEXT = 4096
+# zamba2-7b's gradient in f32 (TF32 off) on the card against the same step
+# on the CPU: full width, the fewest layers that hold one application of
+# the shared block, (B, S) = ZAMBA_GRAD; each leaf within ZAMBA_GRAD_TOL of
+# its largest; the control, the Mamba state zeroed halfway through the
+# sequence, must exceed it
+ZAMBA_GRAD = (1, 64)
+ZAMBA_GRAD_LAYERS = 6
+ZAMBA_GRAD_TOL = 1e-4
+# paligemma-3b (all 18 layers; B=2, 256 stub patch embeddings as the
+# prefix and 256 text tokens, its forward phase's shape) and whisper-base
+# FULL (B=2, 1500 stub frames, 448 decoder tokens: Whisper's n_audio_ctx
+# and n_text_ctx), device AdamW (paligemma: 2.51 B parameters x 12 bytes,
+# 30 GB with its moments; the chunked update keeps its peak at 60.7 GB),
+# TRAIN_STEPS steps at the smollm phase's warm-up; the mean loss of the
+# last TRAIN_FALL steps must be below that of the first TRAIN_FALL.
+# whisper-base takes the smollm phase's peak lr; paligemma-3b
+# PALIGEMMA_LR: at 1e-3 its loss rose to 17.3 at step 3 before falling to
+# 5.8, at 1e-4 it peaked at 12.7 and fell to 7.4 (chip call 3 of PR 27,
+# H100 80GB HBM3, 700 W), Adam's first steps moving its 2048- and
+# 16384-wide products further
+PALIGEMMA_TRAIN = (2, 512)
+PALIGEMMA_LR = 1e-4
+WHISPER_TRAIN = (2, 1500, 448)
+TRAIN_STEPS = 10
+TRAIN_FALL = 3
 # the RWKV forward path: rwkv6-7b FULL at (batch, sequence); 4096 is the
 # published context length of the RWKV-6 World models
 RWKV_FORWARD = (2, 4096)
@@ -576,6 +657,11 @@ MOE_REQUESTS = 8
 # order of f32 sums (~1e-6 relative at 7168 terms), where rounding the
 # product to bf16, the control, is ~2**-9 off
 BMM_F32_RTOL = 1e-4
+# the ffn columns of mixtral-8x7b's expert gradients that the CPU takes
+# in f32 to check the card's (moe_expert_grads): 2048 of 14336, 0.7-2.2 s
+# a product on the card machine's host, where the whole two products took
+# 35 s (chip calls 9, 10 and 14 of PR 27, H100 80GB HBM3, 700 W)
+MOE_GRAD_COLUMNS = 2048
 # the stream kernels' row widths on the MoE serving paths, as cut:
 # kv_dims = layers x 2 x kv heads x hd (32768 and 1792)
 MOE_KV_DIMS = {arch: layers * 2 * dims[3] * (dims[1] // dims[2])
@@ -1710,6 +1796,23 @@ def host_ram_bytes() -> dict:
     return out
 
 
+def settled_host_ram(limit_s: float = 30.0) -> dict:
+    """``host_ram_bytes`` once MemAvailable has stopped rising (by less
+    than 512 MiB in a second): pinned host memory handed back by
+    ``free_memory`` returns to it over seconds (25.8 GB took ~5 s on the
+    card machine, PR 27), and an earlier phase's moments must not count
+    against the next one's."""
+    ram = host_ram_bytes()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < limit_s:
+        time.sleep(1.0)
+        now = host_ram_bytes()
+        if now["MemAvailable"] - ram["MemAvailable"] < 1 << 29:
+            return now
+        ram = now
+    return ram
+
+
 def train_batch(api, B: int, S: int, seed: int) -> dict:
     """Batch ``seed`` of the port's data pipeline on the card."""
     from repro_torch.data import DataConfig, device_batch, make_batch
@@ -1834,9 +1937,9 @@ def leaf_paths(tree) -> list:
 
 
 def grad_leaf_check(grads, what: str) -> dict:
-    """Every leaf of ``grads`` finite and not all zero, and each of the
-    time-mix ``mu``'s five rows (r, k, v, w, g) too: the gradient the
-    recurrence passes upstream (a kernel outside autograd leaves the
+    """Every leaf of ``grads`` finite and not all zero, and for RWKV6 each
+    of the time-mix ``mu``'s five rows (r, k, v, w, g) too: the gradient
+    the recurrence passes upstream (a kernel outside autograd leaves the
     four rows feeding r, k, v, w at zero and wr, wk, wv, w_a, w_b, w0, u
     with none)."""
     paths = leaf_paths(grads)
@@ -1845,12 +1948,14 @@ def grad_leaf_check(grads, what: str) -> dict:
             fail(f"{what}: the gradient of {path} is not finite")
         if not g.abs().max() > 0:
             fail(f"{what}: the gradient of {path} is all zero")
-    mu = grads["layers"]["tm"]["mu"].float().abs().amax(dim=(0, 2))
-    if not (mu > 0).all():
-        fail(f"{what}: a row of mu has no gradient: {mu.tolist()}")
-    return {"leaves": len(paths), "mu_rows_max_abs": mu.tolist(),
-            "min_leaf_max_abs": min(g.abs().max().item()
-                                    for _, g in paths)}
+    out = {"leaves": len(paths),
+           "min_leaf_max_abs": min(g.abs().max().item() for _, g in paths)}
+    if "tm" in grads.get("layers", {}):
+        mu = grads["layers"]["tm"]["mu"].float().abs().amax(dim=(0, 2))
+        if not (mu > 0).all():
+            fail(f"{what}: a row of mu has no gradient: {mu.tolist()}")
+        out["mu_rows_max_abs"] = mu.tolist()
+    return out
 
 
 def rwkv_train_phase() -> dict:
@@ -1985,6 +2090,553 @@ def rwkv_grad_phase() -> dict:
     print(json.dumps({"train_rwkv_gradient": out}), flush=True)
     del params, got, want
     torch.cuda.empty_cache()
+    return out
+
+
+def train_on_card(name: str, api, cfg, reduced: dict,
+                  extras: dict | None = None) -> tuple[dict, object]:
+    """``Trainer`` at ``cfg`` on the card from its own seeded state (the
+    weights drawn on the card; no other reference to the first weights
+    and moments is held, so each step frees its inputs), the launch
+    counters set to 0 just before the run and read just after. Gates: no
+    kernel launched, every loss finite, the first step's gradient finite
+    and non-zero on every leaf (``grad_leaf_check``). With the host
+    optimizer the host's RAM is checked before the moments (8 bytes a
+    parameter) are pinned. One more step is profiled as it comes. Returns
+    the phase's record (its JSON line's body) and the trained
+    parameters."""
+    from repro_torch.data import DataConfig, device_batch, make_batch
+    from repro_torch.runtime import Trainer
+    host = cfg.optimizer_placement == "host"
+    free_memory()
+    ram = settled_host_ram() if host else host_ram_bytes()
+    if host:
+        moments = 8 * api.param_count
+        if moments > 0.6 * ram["MemAvailable"]:
+            fail(f"{name}: its moments take {moments / 1e9:.1f} GB of the "
+                 f"host's {ram['MemAvailable'] / 1e9:.1f} GB available")
+    tr = Trainer(api, cfg, extras_fn=(lambda: extras) if extras else None)
+    checked, timed = {}, {}
+    real_grads, real_init = tr._grads, tr.init_state
+
+    def grads_spy(p, batch):
+        out = real_grads(p, batch)
+        if not checked:
+            checked.update(grad_leaf_check(out[2], f"{name} training"))
+        return out
+
+    def init_spy(generator=None):
+        t0 = time.perf_counter()
+        out = real_init(generator)
+        torch.cuda.synchronize()
+        timed["init_s"] = time.perf_counter() - t0
+        return out
+
+    tr._grads, tr.init_state = grads_spy, init_spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    params, opt, hist = tr.run()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        fail(f"{name} training launched kernels: {launches}")
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)):
+        fail(f"{name} training: a loss is not finite: {losses}")
+    batch = device_batch(make_batch(DataConfig(
+        vocab=api.cfg.vocab, seq_len=cfg.seq_len,
+        global_batch=cfg.global_batch), cfg.steps), extras, "cuda")
+    ops, dev_ms = profile_once(lambda: tr._one_step(params, opt, batch))
+    step_s = float(np.median([h["sec"] for h in hist[1:]]))
+    out = {"arch": api.arch_id, "reduced": reduced,
+           "batch": cfg.global_batch, "seq": cfg.seq_len,
+           "steps": cfg.steps, "optimizer": cfg.optimizer_placement,
+           "peak_lr": cfg.optim.peak_lr, "param_count": api.param_count,
+           "param_bytes": param_bytes(params), "init_s": timed["init_s"],
+           "losses": losses, "launches": launches, "grads": checked,
+           "step_wall_ms": [h["sec"] * 1e3 for h in hist],
+           "step_wall_ms_median": step_s * 1e3,
+           "step_device_ms": dev_ms, "step_device_ops": ops,
+           "tokens_per_s": cfg.global_batch * cfg.seq_len / step_s,
+           "peak_gb": peak / 1e9}
+    if host:
+        rep = dict(tr.host_opt.last_transfer_report)
+        out.update({"host_ram": ram, "report": rep,
+                    "measured_round_trip_ms": rep["measured_us"] / 1e3,
+                    "modelled_duplex_ms": rep["duplex_us"] / 1e3,
+                    "modelled_serial_ms": rep["serial_us"] / 1e3})
+    del tr, opt, batch
+    return out, params
+
+
+def falling(name: str, losses: list) -> None:
+    """The mean loss of the last TRAIN_FALL steps below that of the
+    first TRAIN_FALL."""
+    if not np.mean(losses[-TRAIN_FALL:]) < np.mean(losses[:TRAIN_FALL]):
+        fail(f"{name} training: the loss did not fall: {losses}")
+
+
+def free_memory() -> None:
+    """Collect garbage, then hand back what PyTorch's caching allocators
+    keep after their tensors are freed: the card's blocks, and the pinned
+    host blocks (the host optimizer's moments), which would otherwise stay
+    out of the host's MemAvailable for the rest of the process."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host = getattr(getattr(torch, "accelerator", None),
+                         "empty_host_cache", None) or torch._C._host_emptyCache
+    empty_host()
+
+
+def finish(key: str, out: dict) -> dict:
+    """Print a phase's line, the card's name and power limit last."""
+    out["card"] = gpu_line()
+    print(json.dumps({key: out}), flush=True)
+    free_memory()
+    return out
+
+
+def moe_expert_grads(api, params, batch) -> dict:
+    """The first layer's expert gradients (w_gate, w_up) of one step of
+    ``api`` on ``batch`` (TF32 off) through the card's ``_BmmF32``, held
+    against a second backend: the CPU takes the same f32 product ``a^T g``
+    from copies of the step's operands (for each ``_bmm_f32`` product of
+    the layer, its buffer ``a`` and the f32 cotangent ``g`` of its output,
+    recorded by an output hook).
+
+    ``_BmmF32.backward`` takes the weight gradient as one f32 cuBLAS
+    product and rounds it to the leaf's bf16. Gates, each relative to the
+    largest |product|: the leaf equals the card's product of the recorded
+    operands rounded to bf16 (the same call, so the same bits); that
+    product within BMM_F32_RTOL of the CPU's, and the control, the product
+    taken in bf16 (``check_bmm_f32``'s control), beyond it; the leaf no
+    more than BMM_F32_RTOL beyond half a bf16 unit in the last place of
+    the CPU's product (a correct rounding of a product within x of the
+    CPU's lies at most x beyond it). The CPU takes MOE_GRAD_COLUMNS of the
+    ffn columns (seeded, the same for every expert): the whole product is
+    ~35 s of the card machine's host."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import layers as nn
+    card_route = nn._bmm_f32
+    seen = []
+
+    def recording(a, b):
+        out = card_route(a, b)
+        if out.requires_grad and len(seen) < 2:
+            seen.append({"a": a.detach()})
+            out.register_hook(
+                lambda g, rec=seen[-1]: rec.update(g=g.detach()))
+        return out
+
+    def beyond(got, want):
+        """max(|got - want| - half an ulp of want in bf16, 0), largest."""
+        exp = torch.frexp(want)[1]
+        half_ulp = torch.where(want == 0, 0.0, torch.ldexp(
+            torch.ones_like(want), exp - 9))
+        return ((got - want).abs() - half_ulp).clamp_(min=0).max().item()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nn._bmm_f32 = recording
+    out = {}
+    try:
+        _, _, grads = value_and_grad(api.loss_fn, params, batch,
+                                     torch.bfloat16)
+        moe = grads["layers"]["moe"]
+        leaves = {"w_gate": moe["w_gate"][0], "w_up": moe["w_up"][0]}
+        del grads, moe
+        for (name, leaf), rec in zip(leaves.items(), seen):
+            t0 = time.perf_counter()
+            # the backward's own call: a (E, C, D), g (E, C, F) f32
+            prod = torch.bmm(rec["a"].float().transpose(1, 2), rec["g"])
+            control = torch.bmm(rec["a"].transpose(1, 2),
+                                rec["g"].to(torch.bfloat16))
+            exact = torch.equal(leaf, prod.to(leaf.dtype))
+            top = prod.abs().max().item()
+            cols = torch.randperm(prod.shape[2], generator=torch.Generator(
+            ).manual_seed(0))[:MOE_GRAD_COLUMNS].sort().values
+            on_card = cols.to(prod.device)
+            a, g = rec["a"].cpu(), rec["g"][:, :, on_card].cpu()
+            err = control_err = leaf_err = 0.0
+            for e in range(a.shape[0]):
+                want = a[e].float().T @ g[e]
+                pick = lambda t: t[e][:, on_card].float().cpu()
+                err = max(err, (pick(prod) - want).abs().max().item())
+                control_err = max(control_err,
+                                  (pick(control) - want).abs().max().item())
+                leaf_err = max(leaf_err, beyond(pick(leaf), want))
+            out[name] = {
+                "shape": list(leaf.shape), "dtype": str(leaf.dtype),
+                "columns": len(cols), "leaf_is_rounded_product": exact,
+                "max_rel_err": err / top,
+                "control_max_rel_err": control_err / top,
+                "leaf_beyond_rounding_max_rel": leaf_err / top,
+                "cpu_threads": torch.get_num_threads(),
+                "s": time.perf_counter() - t0}
+            del prod, control
+    finally:
+        nn._bmm_f32 = card_route
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del seen, leaves
+    return out
+
+
+def mixtral_train_phase() -> dict:
+    """mixtral-8x7b at full width, MIXTRAL_TRAIN_LAYERS of its 32 layers,
+    trained MIXTRAL_TRAIN_STEPS steps with the host optimizer at (B, S) =
+    MIXTRAL_TRAIN (``train_on_card``); then the first layer of the
+    trained weights at full width, one step: its expert gradients through
+    the card's ``_BmmF32`` against the CPU's f32 product of the step's
+    operands, each leaf the bf16 rounding of the card's f32 product, that
+    product within BMM_F32_RTOL of the CPU's and the leaf within it beyond
+    its rounding, and the control (the bf16 product) beyond it
+    (``moe_expert_grads``)."""
+    from repro_torch.models import layers as nn
+    from repro_torch.models import registry
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig
+    B, S = MIXTRAL_TRAIN
+    L = MIXTRAL_TRAIN_LAYERS
+    api, reduced = moe_api("mixtral-8x7b", L, MOE_RUNS[0][2])
+    reduced["seq_len"] = [MIXTRAL_CONTEXT, S]
+    cfg = TrainConfig(seq_len=S, global_batch=B, steps=MIXTRAL_TRAIN_STEPS,
+                      optimizer_placement="host",
+                      optim=AdamWConfig(warmup_steps=1,
+                                        total_steps=MIXTRAL_TRAIN_STEPS))
+    out, params = train_on_card("mixtral-8x7b", api, cfg, reduced)
+    one = registry._lm_api(api.arch_id, dataclasses.replace(
+        api.cfg, num_layers=1), "cuda")
+    first = {**params, "layers": nn.tree_map(lambda t: t[:1],
+                                             params["layers"])}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads = moe_expert_grads(one, first, train_batch(one, B, S, 0))
+    out["expert_grads"] = {"layers": 1, "rtol": BMM_F32_RTOL, **grads}
+    finish("train_mixtral", out)
+    for name, g in grads.items():
+        if not g["leaf_is_rounded_product"]:
+            fail(f"mixtral-8x7b: the card's {name} gradient is not its "
+                 f"f32 product rounded to bf16")
+        if not g["max_rel_err"] <= BMM_F32_RTOL:
+            fail(f"mixtral-8x7b: the card's {name} product is "
+                 f"{g['max_rel_err']} of its largest off the CPU's "
+                 f"(limit {BMM_F32_RTOL})")
+        if not g["leaf_beyond_rounding_max_rel"] <= BMM_F32_RTOL:
+            fail(f"mixtral-8x7b: the card's {name} gradient is "
+                 f"{g['leaf_beyond_rounding_max_rel']} of its largest "
+                 f"beyond its bf16 rounding of the CPU's product (limit "
+                 f"{BMM_F32_RTOL})")
+        if not g["control_max_rel_err"] > BMM_F32_RTOL:
+            fail(f"mixtral-8x7b: the bf16 {name} product is "
+                 f"{g['control_max_rel_err']} off, within the limit: the "
+                 f"check cannot see a rounding")
+    return out
+
+
+def zamba2_cut(layers: int, dtype=torch.bfloat16, device: str = "cuda"):
+    """zamba2-7b's published widths cut to ``layers`` layers."""
+    from repro_torch.models import registry
+    full = registry.build("zamba2-7b", smoke=False, device=device).cfg
+    dims = (full.num_layers, full.d_model, full.num_heads, full.d_ff,
+            full.vocab, full.ssm_state, full.attn_every)
+    if dims != (81, 3584, 32, 14336, 32000, 64, 6):
+        fail(f"zamba2-7b: not the full-width config: {dims}")
+    return registry._hybrid_api("zamba2-7b", dataclasses.replace(
+        full, num_layers=layers, dtype=dtype), device)
+
+
+def zamba2_train_phase() -> dict:
+    """zamba2-7b at full width, ZAMBA_TRAIN_LAYERS of its 81 layers (two
+    applications of the shared block), device AdamW, ZAMBA_TRAIN_STEPS
+    steps at (B, S) = ZAMBA_TRAIN (``train_on_card``): the SSD scan's
+    Python loop under autograd."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig
+    B, S = ZAMBA_TRAIN
+    api = zamba2_cut(ZAMBA_TRAIN_LAYERS)
+    if api.cfg.num_attn_apps != 2:
+        fail(f"zamba2-7b at {ZAMBA_TRAIN_LAYERS} layers applies the shared "
+             f"block {api.cfg.num_attn_apps} times, not 2")
+    cfg = TrainConfig(seq_len=S, global_batch=B, steps=ZAMBA_TRAIN_STEPS,
+                      optim=AdamWConfig(warmup_steps=1,
+                                        total_steps=ZAMBA_TRAIN_STEPS))
+    out, params = train_on_card(
+        "zamba2-7b", api, cfg, {"num_layers": [81, ZAMBA_TRAIN_LAYERS],
+                                "seq_len": [ZAMBA_CONTEXT, S]})
+    out["attn_apps"] = api.cfg.num_attn_apps
+    del params
+    return finish("train_zamba2", out)
+
+
+def zamba2_grad_phase() -> dict:
+    """zamba2-7b's gradient in f32 (TF32 off) at full width,
+    ZAMBA_GRAD_LAYERS layers (one application of the shared block), (B,
+    S) = ZAMBA_GRAD, on the card against the same step on the CPU (the
+    same weights, copied): each leaf within ZAMBA_GRAD_TOL of its
+    largest; the control (the Mamba state zeroed halfway through the
+    sequence on the card) must exceed it."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import layers as nn
+    from repro_torch.models import ssm
+    B, S = ZAMBA_GRAD
+    api = zamba2_cut(ZAMBA_GRAD_LAYERS, torch.float32)
+    cpu_api = zamba2_cut(ZAMBA_GRAD_LAYERS, torch.float32, "cpu")
+    if api.cfg.num_attn_apps != 1:
+        fail(f"zamba2-7b at {ZAMBA_GRAD_LAYERS} layers applies the shared "
+             f"block {api.cfg.num_attn_apps} times, not 1")
+    params = api.init(torch.Generator("cuda").manual_seed(2))
+    batch = train_batch(api, B, S, 2)
+    real_loop = ssm._ssd_loop
+
+    def zeroed_halfway(xh, Bmat, Cmat, dt, A_log, D, h):
+        half = xh.shape[1] // 2
+        y1, h1 = real_loop(xh[:, :half], Bmat[:, :half], Cmat[:, :half],
+                           dt[:, :half], A_log, D, h)
+        y2, h2 = real_loop(xh[:, half:], Bmat[:, half:], Cmat[:, half:],
+                           dt[:, half:], A_log, D, torch.zeros_like(h1))
+        return torch.cat([y1, y2], dim=1), h2
+
+    def worst(got, want) -> tuple[float, str]:
+        w, where = 0.0, None
+        for (path, a), b in zip(leaf_paths(got), nn.tree_leaves(want)):
+            share = ((a.cpu() - b).abs().max().item()
+                     / max(b.abs().max().item(), 1e-30))
+            if share > w:
+                w, where = share, path
+        return w, where
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        loss_c, _, got = value_and_grad(api.loss_fn, params, batch,
+                                        torch.float32)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = all_launches()
+        ssm._ssd_loop = zeroed_halfway
+        try:
+            _, _, faulted = value_and_grad(api.loss_fn, params, batch,
+                                           torch.float32)
+        finally:
+            ssm._ssd_loop = real_loop
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    checked = grad_leaf_check(got, "zamba2-7b gradient")
+    cpu_params = nn.tree_map(lambda t: t.cpu(), params)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    del params
+    t0 = time.perf_counter()
+    loss_h, _, want = value_and_grad(cpu_api.loss_fn, cpu_params, cpu_batch,
+                                     torch.float32)
+    cpu_s = time.perf_counter() - t0
+    share, where = worst(got, want)
+    control, control_where = worst(faulted, want)
+    out = {"arch": "zamba2-7b", "layers": ZAMBA_GRAD_LAYERS,
+           "attn_apps": api.cfg.num_attn_apps, "batch": B, "seq": S,
+           "reduced": {"num_layers": [81, ZAMBA_GRAD_LAYERS],
+                       "seq_len": [ZAMBA_CONTEXT, S]},
+           "loss_card": loss_c.item(), "loss_cpu": loss_h.item(),
+           "worst_leaf_share": share, "worst_leaf": where,
+           "tol": ZAMBA_GRAD_TOL,
+           "control_fault": f"Mamba state zeroed at step {S // 2}",
+           "control_worst_leaf_share": control,
+           "control_worst_leaf": control_where, "grads": checked,
+           "card_grad_s": card_s, "cpu_grad_s": cpu_s,
+           "launches": launches}
+    del got, faulted, want, cpu_params
+    finish("train_zamba2_gradient", out)
+    if any(launches.values()):
+        fail(f"zamba2-7b gradient launched kernels: {launches}")
+    if not share <= ZAMBA_GRAD_TOL:
+        fail(f"zamba2-7b: the card's f32 gradient differs from the CPU's by "
+             f"{share} of {where}'s largest (limit {ZAMBA_GRAD_TOL})")
+    if not control > ZAMBA_GRAD_TOL:
+        fail(f"zamba2-7b: the control ({out['control_fault']}) moved the "
+             f"gradient by {control}, within the limit: the check cannot "
+             f"see it")
+    return out
+
+
+def paligemma_train_phase() -> dict:
+    """paligemma-3b FULL (18 layers) at B=2 over 256 stub patch embeddings
+    and 256 tokens, device AdamW, TRAIN_STEPS steps (``train_on_card``);
+    the loss must fall."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig
+    B, S = PALIGEMMA_TRAIN
+    api = full_api(
+        "paligemma-3b", (18, 2048, 8, 1, 16384, 257216, 256, 256),
+        ("num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
+         "vocab", "head_dim", "prefix_len"))
+    pe = (0.1 * torch.randn((B, api.cfg.prefix_len, api.cfg.d_model),
+                            generator=torch.Generator("cuda").manual_seed(4),
+                            device="cuda")).to(torch.bfloat16)
+    cfg = TrainConfig(seq_len=S, global_batch=B, steps=TRAIN_STEPS,
+                      optim=AdamWConfig(peak_lr=PALIGEMMA_LR,
+                                        warmup_steps=SMOLLM_WARMUP,
+                                        total_steps=TRAIN_STEPS))
+    out, params = train_on_card("paligemma-3b", api, cfg, {},
+                                {"prefix_embeds": pe})
+    out["prefix_len"] = api.cfg.prefix_len
+    del params
+    finish("train_paligemma", out)
+    falling("paligemma-3b", out["losses"])
+    return out
+
+
+def whisper_train_phase() -> dict:
+    """whisper-base FULL at B=2 over 1500 stub frames and 448 decoder
+    tokens, device AdamW, TRAIN_STEPS steps (``train_on_card``); the loss
+    must fall."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig
+    B, S_enc, S_dec = WHISPER_TRAIN
+    api = full_api(
+        "whisper-base", (6, 512, 8, 8, 2048, 51865),
+        ("num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
+         "vocab"))
+    frames = torch.randn((B, S_enc, api.cfg.d_model), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(8))
+    cfg = TrainConfig(seq_len=S_dec, global_batch=B, steps=TRAIN_STEPS,
+                      optim=AdamWConfig(peak_lr=SMOLLM_LR,
+                                        warmup_steps=SMOLLM_WARMUP,
+                                        total_steps=TRAIN_STEPS))
+    out, params = train_on_card("whisper-base", api, cfg, {},
+                                {"frames": frames})
+    out["frames"] = S_enc
+    del params
+    finish("train_whisper", out)
+    falling("whisper-base", out["losses"])
+    return out
+
+
+# each example of ``repro_torch.examples``, run by its ``main`` on the card:
+# (module, its arguments, the start of its closing line, kernels it must
+# launch); train_smollm at 100 of its default 300 steps, for the run's time
+EXAMPLES = [
+    ("quickstart", [], "  served 2x12 greedy tokens", ()),
+    ("duplex_tour", [], "   64 GB of Adam moments: duplex",
+     ("duplex_kv_stream", "quant_stream", "dequant_stream")),
+    ("serve_offload", [], "OK", ("duplex_kv_stream",)),
+    ("multi_tenant_serve", [],
+     "staggered multi-tenant == static-batch reference: True",
+     ("duplex_kv_stream", "l2_distance")),
+    ("train_smollm", ["--steps", "100"], "OK", ()),
+]
+
+
+def examples_phase() -> dict:
+    """Each example's ``main`` on the card, in this process (its launch
+    counters read directly, and no process start of ~8 s an example),
+    its output captured and printed with the example's name: each must
+    return 0, print its closing line and launch the kernels EXAMPLES
+    names (counters set to 0 just before each ``main``, read just after);
+    serve_offload's staggered run must match its static-batch reference.
+    Then duplex_tour's layer 2 again on its streams: the fused kernel's
+    outputs equal the phase-separated pair's and hold against the plain
+    version (``compare``), both routes timed."""
+    import importlib
+    import io
+    from repro_torch.kernels import ref
+    runs = {}
+    for name, argv, closing, must in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        out = io.StringIO()
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = all_launches()
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            print(f"  [{name}] {line}")
+        runs[name] = {"rc": rc, "seconds": seconds, "launches": launches,
+                      "closing": lines[-1] if lines else None}
+        if rc != 0 or not lines or not lines[-1].startswith(closing):
+            fail(f"example {name}: exit {rc}, closing line "
+                 f"{runs[name]['closing']!r}")
+        missing = [k for k in must if not launches[k] > 0]
+        if missing:
+            fail(f"example {name} launched no {missing}: {launches}")
+        if name == "serve_offload" and "staggered == static-batch " \
+                "reference (first 2 reqs): True" not in lines:
+            fail("example serve_offload: the staggered run is off its "
+                 "static-batch reference")
+    from repro_torch.examples import duplex_tour
+    streams = duplex_tour.stream_inputs(torch.device("cuda"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        tour = duplex_tour.layer2(*streams)
+    if not tour["same"]:
+        fail("duplex_tour: the fused kernel's outputs differ from the "
+             "phase-separated pair's")
+    want = ref.duplex_kv_stream(*streams)
+    errs = [compare("duplex_tour fused", tour["fused"], want),
+            compare("duplex_tour phase-separated", tour["split"], want)]
+    out = {"runs": runs, "layer2": {
+        "shape": list(duplex_tour.STREAM_SHAPE), "bytes": tour["bytes"],
+        "fused_equals_split": tour["same"], "max_abs_err": max(errs),
+        "fused_ms": tour["fused_ms"], "split_ms": tour["split_ms"]}}
+    return finish("examples", out)
+
+
+def offload_demo_phase() -> dict:
+    """``python -m repro_torch.launch.serve --offload-demo`` (the
+    deprecated ``OffloadedKVCache`` shim) in this process on the card,
+    then with ``--device cpu``: the run report's fields (wall clock and
+    ``device`` left out), the demo's stats and its speedup line equal;
+    the card's run launches ``duplex_kv_stream`` and the CPU's nothing."""
+    import io
+    import warnings
+    from repro_torch.launch import serve
+    argv = ["serve", "--requests", "2", "--gen", "3", "--no-warmup",
+            "--offload-demo"]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        out = io.StringIO()
+        saved = sys.argv
+        sys.argv = argv + ["--device", device]
+        reset_all_launches()
+        try:
+            with contextlib.redirect_stdout(out), \
+                    warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                rc = serve.main()
+        finally:
+            sys.argv = saved
+        lines = out.getvalue().strip().splitlines()
+        if rc != 0 or len(lines) < 3 \
+                or not lines[-2].startswith("offload demo stats: "):
+            fail(f"--offload-demo on {device}: exit {rc}, {lines[-3:]}")
+        runs[device] = {"report": json.loads(lines[-3]),
+                        "stats": json.loads(lines[-2].split(": ", 1)[1]),
+                        "speedup_line": lines[-1],
+                        "launches": all_launches()}
+    card, cpu = runs["cuda"], runs["cpu"]
+    skip = {"wall_s", "tok_s", "device"}
+    diff = sorted(k for k in set(card["report"]) | set(cpu["report"])
+                  if k not in skip
+                  and card["report"].get(k) != cpu["report"].get(k))
+    out = {"stats": card["stats"], "speedup_line": card["speedup_line"],
+           "launches_card": card["launches"],
+           "report_fields_differing": diff,
+           "stats_equal": card["stats"] == cpu["stats"]}
+    finish("offload_demo", out)
+    if diff or card["stats"] != cpu["stats"] \
+            or card["speedup_line"] != cpu["speedup_line"]:
+        fail(f"--offload-demo: the card's run differs from the CPU's in "
+             f"{diff or 'the demo stats'}")
+    if not card["launches"]["duplex_kv_stream"] > 0 \
+            or any(cpu["launches"].values()):
+        fail(f"--offload-demo launches: card {card['launches']}, cpu "
+             f"{cpu['launches']}")
     return out
 
 
@@ -2474,16 +3126,22 @@ def rwkv_serve_phase(api, params) -> dict:
     return out
 
 
-def model_on_card(arch: str, dims: tuple, fields: tuple):
-    """``arch``'s FULL config on the card, its weights drawn on the card
-    from a seed with a CUDA generator (drawing billions of values on the
-    host would take about a minute); fails unless the config's ``fields``
-    read ``dims``. Returns (api, params, init seconds)."""
+def full_api(arch: str, dims: tuple, fields: tuple):
+    """``arch``'s FULL config on the card; fails unless the config's
+    ``fields`` read ``dims``."""
     from repro_torch.models import registry
     api = registry.build(arch, smoke=False, device="cuda")
     got = tuple(getattr(api.cfg, f) for f in fields)
     if got != dims:
         fail(f"{arch}: not the full-width config: {dict(zip(fields, got))}")
+    return api
+
+
+def model_on_card(arch: str, dims: tuple, fields: tuple):
+    """``full_api``, its weights drawn on the card from a seed with a CUDA
+    generator (drawing billions of values on the host would take about a
+    minute). Returns (api, params, init seconds)."""
+    api = full_api(arch, dims, fields)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = api.init(torch.Generator("cuda").manual_seed(0))
@@ -2695,11 +3353,10 @@ def check_bmm_f32() -> dict:
     return out
 
 
-def moe_model(arch: str, layers: int, dims: tuple):
+def moe_api(arch: str, layers: int, dims: tuple):
     """``arch``'s FULL config cut to its first ``layers`` layers, widths
-    untouched, weights drawn on the card from a seed with a CUDA generator
-    (the expert stacks one matrix at a time); fails unless the published
-    config reads ``dims``. Returns (api, params, init seconds, the cut)."""
+    untouched, on the card; fails unless the published config reads
+    ``dims``. Returns (api, the cut)."""
     from repro_torch.models import registry
     full = registry.build(arch, smoke=False, device="cuda").cfg
     got = (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
@@ -2710,12 +3367,19 @@ def moe_model(arch: str, layers: int, dims: tuple):
     api = registry._lm_api(arch, dataclasses.replace(full,
                                                      num_layers=layers),
                            "cuda")
+    return api, {"num_layers": [full.num_layers, layers]}
+
+
+def moe_model(arch: str, layers: int, dims: tuple):
+    """``moe_api``, its weights drawn on the card from a seed with a CUDA
+    generator (the expert stacks one matrix at a time). Returns (api,
+    params, init seconds, the cut)."""
+    api, reduced = moe_api(arch, layers, dims)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = api.init(torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
-    return (api, params, time.perf_counter() - t0,
-            {"num_layers": [full.num_layers, layers]})
+    return api, params, time.perf_counter() - t0, reduced
 
 
 def moe_serve_phase(api, params, reduced: dict, shapes: dict) -> dict:
@@ -4538,6 +5202,23 @@ def card_main(cpu: tuple, dry: tuple) -> int:
     wkv_bwd_row["rwkv_train_step_ms"] = step_ms
     wkv_bwd_row["share_of_rwkv_train_step"] = \
         wkv_bwd_row["launches_per_step"] * wkv_bwd_row["ms"] / step_ms
+    # training at full width for the other families (0 kernel launches:
+    # their loss runs the plain attention, as the reference's), then the
+    # examples and the deprecated serving shims
+    train["mixtral"] = mixtral_train_phase()
+    mark("train_mixtral")
+    train["zamba2"] = zamba2_train_phase()
+    mark("train_zamba2")
+    train["zamba2_gradient"] = zamba2_grad_phase()
+    mark("train_zamba2_gradient")
+    train["paligemma"] = paligemma_train_phase()
+    mark("train_paligemma")
+    train["whisper"] = whisper_train_phase()
+    mark("train_whisper")
+    examples_phase()
+    mark("examples")
+    offload_demo_phase()
+    mark("offload_demo")
     # the dry-run against the card, remat on the card, and the production
     # dry-run cells (traced on the host beside the card's work)
     predicted = wait_dryruns(dry)

@@ -3,8 +3,9 @@
 side with DDR5/CXL channels, ``--faults`` injects a fault plan,
 ``--trace OUT.JSON`` exports a Perfetto trace of the measured run,
 ``--snapshot-dir`` / ``--snapshot-every`` take crash-consistent snapshots,
-``--restore`` resumes a crashed run from them and ``--mesh data,model``
-serves sharded over a device mesh).
+``--restore`` resumes a crashed run from them, ``--mesh data,model``
+serves sharded over a device mesh and ``--offload-demo`` then drives the
+deprecated ``runtime.serve.OffloadedKVCache`` shim).
 
 Requests arrive staggered into the ``ServeEngine`` megastep loop; the
 admission policy picks which waiting work joins the running set — LLM
@@ -208,6 +209,8 @@ def main() -> int:
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the warmup pass (the reported tok/s then "
                         "includes the kernels' build and first launches)")
+    p.add_argument("--offload-demo", action="store_true",
+                   help="also run the legacy synthetic tiered-KV demo")
     args = p.parse_args()
     tenant_names = args.tenants            # validated at argparse time
     if tenant_names and args.no_paging:
@@ -496,6 +499,20 @@ def main() -> int:
     if args.telemetry:
         report["telemetry"] = _round(engine.telemetry.to_dict())
     print(json.dumps(report))
+
+    if args.offload_demo:
+        from repro_torch.runtime.serve import OffloadedKVCache
+        kv = OffloadedKVCache(n_blocks=64, hbm_blocks=16,
+                              block_shape=(16, 64), device=args.device)
+        for b in range(64):                 # fill + spill real data to host
+            kv.write_block(b, torch.ones((16, 64)) * b)
+        for start in range(0, 48, 8):       # real ins co-issued with outs
+            kv.touch(list(range(start, start + 8)))
+        print("offload demo stats:", json.dumps(
+            {k: round(v, 2) if isinstance(v, float) else v
+             for k, v in kv.stats.items()}))
+        print(f"duplex vs phase-separated paging: "
+              f"{kv.duplex_speedup():.2f}x")
     return 0
 
 

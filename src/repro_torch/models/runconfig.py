@@ -126,7 +126,8 @@ def placements(spec: tuple, mesh) -> list:
     return out
 
 
-def _is_dtensor(x) -> bool:
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` (a dry-run's sharded leaf)."""
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
 
@@ -139,7 +140,7 @@ def constrain(x, axes: tuple):
     to the placements of ``resolve``'s spec; any other tensor, and every
     tensor outside an env, is returned untouched."""
     env = _shard_env.get()
-    if env is None or not _is_dtensor(x):
+    if env is None or not is_dtensor(x):
         return x
     mesh, dp, tp = env
     want = placements(resolve(axes, tuple(x.shape), mesh, dp, tp), mesh)
@@ -168,7 +169,7 @@ def gather(tree):
     def one(t):
         if isinstance(t, dict):
             return {k: one(v) for k, v in t.items()}
-        if not _is_dtensor(t):
+        if not is_dtensor(t):
             return t
         want = [p if names[i] == tp else Replicate()
                 for i, p in enumerate(t.placements)]
@@ -182,7 +183,7 @@ def gather(tree):
 def replicate(x):
     """A DTensor gathered whole on every rank (the identity for any other
     tensor)."""
-    if not _is_dtensor(x):
+    if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Replicate
     want = [Replicate()] * x.device_mesh.ndim
@@ -223,7 +224,7 @@ def along(t, x, dim: int):
     """A 1-D plain tensor ``t`` laid out like ``x``'s dim ``dim`` when
     ``x`` is a DTensor (each rank keeps its slice: an index vector that
     lines up with a sharded dim); ``t`` itself otherwise."""
-    if not _is_dtensor(x):
+    if not is_dtensor(x):
         return t
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 

@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.models import runconfig
 from repro_torch.models.layers import tree_leaves, tree_map
 
 
@@ -97,21 +98,60 @@ def bias_corrections(cfg: AdamWConfig, step: torch.Tensor):
     return lr, bc1, bc2
 
 
+#: elements of a leaf updated at a time (64 MB of f32 moments, the host
+#: optimizer's default streaming granularity). The update is elementwise,
+#: so the chunks change no value; they bound its temporaries to a few
+#: chunks, where a whole leaf takes about ten f32 copies of itself
+#: (paligemma-3b's stacked MLP leaf is 2.4 GB in f32)
+CHUNK = 1 << 24
+
+
+def chunks(n: int) -> list[slice]:
+    """The slices of at most ``CHUNK`` elements that cover ``n``."""
+    return [slice(s, s + CHUNK) for s in range(0, n, CHUNK)]
+
+
+def update_chunk(p, g, m, v, lr, bc1, bc2, b1, b2, eps, wd,
+                 out=(None, None, None)):
+    """AdamW on one leaf or on equal flat slices of one: returns (p2, m2,
+    v2), each written in place into its slice of ``out`` (p, m, v) where
+    one is given (``m``'s may be ``m``, ``v``'s ``v``). The scalars ``b1,
+    b2, eps, wd`` are Python floats (``1 - b1`` taken in a double) or 0-d
+    f32 tensors (taken in f32), as the caller's reference has them; the
+    operations and their order are the reference's."""
+    p_out, m_out, v_out = out
+    gf = g.to(torch.float32)
+    m2 = torch.add(torch.mul(m, b1), torch.mul(gf, 1.0 - b1), out=m_out)
+    v2 = torch.add(torch.mul(v, b2), torch.mul(torch.square(gf), 1.0 - b2),
+                   out=v_out)
+    update = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+    pf = p.to(torch.float32)
+    p2 = torch.sub(pf, lr * (update + wd * pf), out=p_out)
+    return (p2 if p_out is not None else p2.to(p.dtype)), m2, v2
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, state):
-    """One optimizer step. Returns (new_params, new_state, metrics)."""
+    """One optimizer step, each leaf in chunks of ``CHUNK`` elements.
+    Returns (new_params, new_state, metrics)."""
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     step = state["step"] + 1
     lr, bc1, bc2 = bias_corrections(cfg, step)
 
     def leaf(p, g, m, v):
-        gf = g.to(torch.float32)
-        m2 = cfg.b1 * m + (1.0 - cfg.b1) * gf
-        v2 = cfg.b2 * v + (1.0 - cfg.b2) * torch.square(gf)
-        update = (m2 / bc1) / (torch.sqrt(v2 / bc2) + cfg.eps)
-        pf = p.to(torch.float32)
-        p2 = pf - lr * (update + cfg.weight_decay * pf)
-        return p2.to(p.dtype), m2, v2
+        scalars = (lr, bc1, bc2, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
+        if runconfig.is_dtensor(p):
+            # a dry-run's sharded leaf: each device's shard updated whole
+            # and out of place, as the reference's (a flat view would
+            # gather the leaf onto every device)
+            return update_chunk(p, g, m, v, *scalars)
+        outs = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                for t in (p, m, v)]
+        flat = [t.reshape(-1) for t in (p, g, m, v, *outs)]
+        for c in chunks(flat[0].numel()):
+            update_chunk(*(t[c] for t in flat[:4]), *scalars,
+                         out=[t[c] for t in flat[4:]])
+        return tuple(outs)
 
     out = tree_map(leaf, params, grads, state["m"], state["v"])
     pick = lambda i: tree_map(lambda o: o[i], out)   # tuples are leaves

@@ -17,10 +17,16 @@ The moments are CPU f32 tensors. With the parameters on the card they
 are pinned (page-locked), so each copy is one DMA at the link's rate
 rather than a staged copy through a pageable bounce buffer; on the CPU
 they are plain. The update walks the leaves in the reference's order
-(sorted keys), one at a time: the leaf's moments are copied to the
-parameters' device, updated there, and copied back into the host tensors
-in place. Each copy completes before the next leaf starts (the
-reference's serial structure; overlapping them is later work). The port
+(sorted keys), one at a time, and each leaf in ``adamw.CHUNK``-element
+chunks (64 MB of each moment, the plan's default granularity): the
+chunk's moments are copied to the parameters' device, updated there in
+place (``adamw.update_chunk``), and copied back into the host tensors in
+place. The update is elementwise, so the chunks change no
+value; they bound the optimizer's transient on the device to a few
+chunks, where whole leaves would take about ten f32 copies of the
+largest leaf (an expert stack of mixtral-8x7b at 4 layers is 7.5 GB in
+f32). Each copy completes before the next chunk starts (the reference's
+serial structure; overlapping them is later work). The port
 also records the measured wall time of that whole streamed loop per step
 (``measured_us``: every page-in, update and writeback, the last
 writeback landed in host memory) beside the modelled times.
@@ -36,8 +42,8 @@ import torch
 from repro_torch.core import channel as channel_lib
 from repro_torch.core.offload import DuplexOffloadEngine
 from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
-from repro_torch.optim.adamw import (AdamWConfig, bias_corrections,
-                                     clip_by_global_norm)
+from repro_torch.optim.adamw import (AdamWConfig, bias_corrections, chunks,
+                                     clip_by_global_norm, update_chunk)
 
 
 def _sync(device: torch.device) -> None:
@@ -60,8 +66,7 @@ class HostOffloadAdamW:
         pin = device.type == "cuda"
 
         def host_zeros(p):
-            z = torch.zeros(p.shape, dtype=torch.float32)
-            return z.pin_memory() if pin else z
+            return torch.zeros(p.shape, dtype=torch.float32, pin_memory=pin)
 
         self._m = tree_map(host_zeros, params)
         self._v = tree_map(host_zeros, params)
@@ -72,21 +77,10 @@ class HostOffloadAdamW:
         return sum(x.numel() * x.element_size()
                    for x in tree_leaves(self._m)) * 2.0
 
-    @staticmethod
-    def _leaf_update(p, g, m, v, lr, bc1, bc2, b1, b2, eps, wd):
-        """The reference's jitted per-leaf update, whose scalars are f32
-        arguments (so ``1 - b1`` is taken in f32 here, in a Python double
-        in ``adamw_update``)."""
-        gf = g.to(torch.float32)
-        m2 = b1 * m + (1.0 - b1) * gf
-        v2 = b2 * v + (1.0 - b2) * torch.square(gf)
-        upd = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
-        pf = p.to(torch.float32)
-        return (pf - lr * (upd + wd * pf)).to(p.dtype), m2, v2
-
     @torch.no_grad()
     def update(self, params, grads, state):
-        """Streamed update: moments page in/out leaf by leaf."""
+        """Streamed update: moments page in/out leaf by leaf, chunk by
+        chunk."""
         cfg = self.cfg
         grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
         step = state["step"] + 1
@@ -100,16 +94,23 @@ class HostOffloadAdamW:
         t0 = time.perf_counter()
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(self._m), tree_leaves(self._v)):
-            # H2D page-in of this leaf's moments
-            m_dev = m.to(p.device)
-            v_dev = v.to(p.device)
-            p2, m2, v2 = self._leaf_update(p, g, m_dev, v_dev, lr, bc1, bc2,
-                                           *scalars)
-            # D2H writeback of the updated moments, in place in the host
-            # pool (waits for the update: the reference's np.asarray)
-            m.copy_(m2)
-            v.copy_(v2)
-            new_p.append(p2)
+            new = torch.empty_like(p, memory_format=torch.contiguous_format)
+            flat_p, flat_g, flat_new = (t.reshape(-1) for t in (p, g, new))
+            flat_m, flat_v = m.view(-1), v.view(-1)
+            for c in chunks(flat_p.numel()):
+                # H2D page-in of this chunk's moments
+                m_dev = flat_m[c].to(p.device)
+                v_dev = flat_v[c].to(p.device)
+                # the reference's jitted per-leaf update, whose scalars
+                # are f32 arguments (so 1 - b1 is taken in f32 here)
+                update_chunk(flat_p[c], flat_g[c], m_dev, v_dev, lr, bc1,
+                             bc2, *scalars, out=(flat_new[c], m_dev, v_dev))
+                # D2H writeback of the updated moments, in place in the
+                # host pool (waits for the update: the reference's
+                # np.asarray)
+                flat_m[c].copy_(m_dev)
+                flat_v[c].copy_(v_dev)
+            new_p.append(new.view(p.shape))
             moved += (m.numel() * m.element_size()
                       + v.numel() * v.element_size())
         _sync(step.device)

@@ -1,6 +1,8 @@
-"""The port stands alone: importing every ``repro_torch`` module pulls in
-neither JAX nor the JAX package, ``chip_smoke.py`` imports neither, and
-every entry point runs on ``cuda`` unless told ``device="cpu"``."""
+"""The port stands alone: importing every ``repro_torch`` module (the
+examples and the deprecated serving shims among them) pulls in neither
+JAX nor the JAX package, ``chip_smoke.py`` imports neither, and every
+entry point, each example too, runs on ``cuda`` unless told
+``device="cpu"``."""
 
 import ast
 import importlib.util
@@ -19,6 +21,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+EXAMPLES = ("quickstart", "duplex_tour", "serve_offload",
+            "multi_tenant_serve", "train_smollm")
 
 
 def _env():
@@ -55,6 +59,10 @@ def test_importing_the_port_pulls_in_no_jax():
     for m in ("repro_torch.data.pipeline", "repro_torch.optim.adamw",
               "repro_torch.optim.host_offload", "repro_torch.runtime.train",
               "repro_torch.launch.train", "repro_torch.launch.steps"):
+        assert m in mods
+    # the examples and the deprecated serving shims
+    for m in ("repro_torch.runtime.serve", "repro_torch.examples",
+              *(f"repro_torch.examples.{name}" for name in EXAMPLES)):
         assert m in mods
 
 
@@ -122,6 +130,21 @@ def test_training_needs_a_gpu_unless_told_cpu(monkeypatch, capsys):
     batch = device_batch({"tokens": np.zeros((1, 2), np.int32)}, None,
                          "cpu")
     assert batch["tokens"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_need_a_gpu_unless_told_cpu(name):
+    """Each example's ``main`` raises without a GPU, as the CLIs do, before
+    it prints anything; ``--device cpu`` is accepted (the examples' own
+    test files run each one whole on the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("this checks the no-GPU behaviour")
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main([])
+    from repro_torch.examples import parse_device
+    args, device = parse_device("", ["--device", "cpu"])
+    assert args.device == "cpu" and device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(capsys):
