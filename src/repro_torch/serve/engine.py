@@ -5,11 +5,12 @@ KV-store and vector-search ``WorkloadAPI``s of ``serve/workloads.py``),
 the tiered host pool (``EngineConfig.tiers``, boundary migrations), the
 fault layer (``EngineConfig.faults``) and the tracing plane
 (``EngineConfig.trace``: ``plan`` / ``dispatch`` / ``reconcile`` /
-``snapshot_cut`` / ``restore`` spans on the host clock, the pool's channel
-timelines on the modelled clock, fault instants; ``metrics()``) and the
-crash-consistency layer (``EngineConfig.snapshot_every``: consistent cuts,
-a write-ahead journal and ``restore()``, ``serve/snapshot.py``). The
-structure is the reference's:
+``snapshot_cut`` / ``restore`` spans on the host clock with the phases
+nested in them, the requests' submission and admission stamps, the pool's
+channel timelines on the modelled clock, fault instants; ``metrics()``)
+and the crash-consistency layer (``EngineConfig.snapshot_every``:
+consistent cuts, a write-ahead journal and ``restore()``,
+``serve/snapshot.py``). The structure is the reference's:
 
   1. **admission** at megastep boundaries — free batch slots, and each
      tenant's free slots, are offered to the ``RequestQueue``, whose
@@ -96,7 +97,7 @@ from repro_torch.serve.queue import (DECODE, DONE, FAILED, PREFILL,
                                      STATE_OF_CODE, Request, RequestQueue,
                                      S_DECODE, S_DONE, S_EMPTY, S_PREFILL)
 from repro_torch.serve.snapshot import SnapshotManager, fresh_snapshot_stats
-from repro_torch.serve.trace import Tracer
+from repro_torch.serve.trace import Tracer, maybe_phase
 
 
 class EngineStallError(RuntimeError):
@@ -474,6 +475,12 @@ class ServeEngine:
             capture=self.device.type == "cuda") if _graphs else None
         self.decode_steps = 0      # micro-steps run (decode_step calls of
                                    # the eager megastep)
+        self.row_advances = 0      # row-micro-steps that consumed a prompt
+                                   # token or fed a generated one (the sum
+                                   # of _reconcile's ``advanced``): over
+                                   # decode_steps x max_batch, the share
+                                   # of the steps' row work that moved a
+                                   # request
         self.step_count = 0
         self.host_dispatches = 0   # megastep-program dispatches
         self.megasteps = 0         # megastep boundaries
@@ -505,6 +512,7 @@ class ServeEngine:
                 self.pool.attach_trace(self._tracer)
         if self._fx is not None:
             self._fx.trace = self._tracer
+        self.queue.tracer = self._tracer
         # non-LLM tenants (WorkloadAPI) sharing the pool, the paging
         # transaction and the admission queue
         self.tenants: dict[str, object] = {}
@@ -643,6 +651,9 @@ class ServeEngine:
                     f"step but the pool holds {self.cfg.hbm_blocks} HBM "
                     f"blocks; grow hbm_blocks or shrink prefill_chunk/"
                     f"block_tokens")
+        if self._tracer is not None:
+            req.trace = {"rid": req.rid, "submit_us": self._tracer.now_us(),
+                         "admit_us": None, "overtaken": 0}
         self.queue.submit(req)
         if self._snap is not None:
             self._snap.note_submit(self, req)
@@ -687,17 +698,21 @@ class ServeEngine:
         """Boundary planning: admission plus every live row's K-step
         trajectory, from the planning view of the request mirrors. No
         device sync."""
-        t0 = self._tracer.now_us() if self._tracer is not None else 0.0
+        tr = self._tracer
+        t0 = tr.begin("plan") if tr is not None else 0.0
         k = int(n_steps) if n_steps else max(1, self.cfg.megastep)
         now = self.step_count
-        admitted = self._admit(now)
+        with maybe_phase(tr, "plan.admit"):
+            admitted = self._admit(now)
         live = self.active()
-        traj = {r.rid: self._simulate_row(r, k) for r in live}
-        if self._tracer is not None:
-            self._tracer.span("plan", t0, step=now, k=k,
-                              admitted=admitted, live=len(live))
+        with maybe_phase(tr, "plan.trajectory"):
+            traj = {r.rid: self._simulate_row(r, k) for r in live}
+            micro = self._active_micro(live, traj, k)
+        if tr is not None:
+            tr.span("plan", t0, step=now, k=k, admitted=admitted,
+                    live=len(live))
         return _InFlight(now=now, k=k, admitted=admitted, live=live,
-                         traj=traj, micro=self._active_micro(live, traj, k))
+                         traj=traj, micro=micro)
 
     def _active_micro(self, live: list[Request], traj: dict,
                       k: int) -> tuple:
@@ -732,95 +747,107 @@ class ServeEngine:
         pool alloc/free is journaled on ``rec``. On a CUDA device the
         ``dispatch`` span covers the enqueue of the step graphs' replays,
         not their run on the card."""
-        t0 = self._tracer.now_us() if self._tracer is not None else 0.0
+        tr = self._tracer
+        t0 = tr.begin("dispatch") if tr is not None else 0.0
         now, k, live, traj = rec.now, rec.k, rec.live, rec.traj
         staged = None
         if live:
-            packed, staged = self._run_megastep(k, rec.micro)
-            staged = self._stage_view(staged)
-            rec.packed = _Readback(packed)
+            with maybe_phase(tr, "dispatch.replay"):
+                packed, staged = self._run_megastep(k, rec.micro)
+                staged = self._stage_view(staged)
+                rec.packed = _Readback(packed)
             self.host_dispatches += 1
             self.decode_steps += sum(rec.micro)
 
         report = {"page_ins": 0, "page_outs": 0, "migrations": 0}
         feedbacks = []
         tenant_done = 0
-        for t in range(k):
-            rows = [(r, traj[r.rid][t]) for r in live
-                    if r.state != FAILED and traj[r.rid][t].state != S_DONE]
-            if self.paged:
-                rep = self._page_kv_at(now + t, rows, staged, t,
-                                       rec.journal)
-                report["page_ins"] += rep["page_ins"]
-                report["page_outs"] += rep["page_outs"]
-                if self._fx is not None:
-                    self._service_fault_report(rep, now + t, rec)
-                # rows completing at this inner step release their pool
-                # blocks now, exactly when the per-step loop would have.
-                for r in live:
-                    st = traj[r.rid][t]
-                    if (st.state == S_DONE and r.blocks
-                            and not r.blocks_freed
-                            and (t == 0
-                                 or traj[r.rid][t - 1].state != S_DONE)):
-                        self.pool.free(r.blocks)
-                        r.blocks_freed = True
-                        rec.journal.append(("free", r, list(r.blocks)))
-            for tn in self.tenants.values():
-                for r in tn.retire(now + t):
-                    self.completed[r.rid] = r
-                    tenant_done += 1
-            if k > 1:
-                feedbacks.append(policies_lib.Feedback(
-                    moved_read=self._fb_zero, moved_write=self._fb_zero,
-                    utilization=np.float32(
-                        len(rows) / max(1, self.cfg.max_batch))))
+        with maybe_phase(tr, "dispatch.page"):
+            for t in range(k):
+                rows = [(r, traj[r.rid][t]) for r in live
+                        if r.state != FAILED
+                        and traj[r.rid][t].state != S_DONE]
+                if self.paged:
+                    rep = self._page_kv_at(now + t, rows, staged, t,
+                                           rec.journal)
+                    report["page_ins"] += rep["page_ins"]
+                    report["page_outs"] += rep["page_outs"]
+                    if self._fx is not None:
+                        self._service_fault_report(rep, now + t, rec)
+                    # rows completing at this inner step release their
+                    # pool blocks now, exactly when the per-step loop
+                    # would have.
+                    for r in live:
+                        st = traj[r.rid][t]
+                        if (st.state == S_DONE and r.blocks
+                                and not r.blocks_freed
+                                and (t == 0 or traj[r.rid][t - 1].state
+                                     != S_DONE)):
+                            self.pool.free(r.blocks)
+                            r.blocks_freed = True
+                            rec.journal.append(
+                                ("free", r, list(r.blocks)))
+                for tn in self.tenants.values():
+                    for r in tn.retire(now + t):
+                        self.completed[r.rid] = r
+                        tenant_done += 1
+                if k > 1:
+                    feedbacks.append(policies_lib.Feedback(
+                        moved_read=self._fb_zero,
+                        moved_write=self._fb_zero,
+                        utilization=np.float32(
+                            len(rows) / max(1, self.cfg.max_batch))))
 
-        if self.paged and self.pool.tiered and self.cfg.tier_migrate:
-            # boundary tier rebalance: planned from this megastep's
-            # per-channel traffic window (host metadata), executed as one
-            # in-place row copy on the device before the readback is
-            # consumed. Plans may cover planned-not-yet-reconciled
-            # residency: moves relocate verbatim host bytes, and a
-            # divergence rollback only needs ownership consistency.
-            report["migrations"] = self.pool.migrate_tiers()["migrations"]
+        with maybe_phase(tr, "dispatch.retire"):
+            if self.paged and self.pool.tiered and self.cfg.tier_migrate:
+                # boundary tier rebalance: planned from this megastep's
+                # per-channel traffic window (host metadata), executed as
+                # one in-place row copy on the device before the readback
+                # is consumed. Plans may cover planned-not-yet-reconciled
+                # residency: moves relocate verbatim host bytes, and a
+                # divergence rollback only needs ownership consistency.
+                report["migrations"] = \
+                    self.pool.migrate_tiers()["migrations"]
 
-        if self._fx is not None and self.pool.host.capacity_degraded:
-            self._shed_over_capacity(rec)
+            if self._fx is not None and self.pool.host.capacity_degraded:
+                self._shed_over_capacity(rec)
 
-        # the megastep's outcome — bar token values — is already decided,
-        # so the planning view advances now (trajectory-driven retirement).
-        for r in live:
-            if r.state == FAILED:
-                continue
-            last = traj[r.rid][-1]
-            r.speculate(STATE_OF_CODE[last.state], last.consumed,
-                        last.n_gen)
-        report["completed"] = tenant_done + self._retire_planned(rec)
+            # the megastep's outcome — bar token values — is already
+            # decided, so the planning view advances now (trajectory-driven
+            # retirement).
+            for r in live:
+                if r.state == FAILED:
+                    continue
+                last = traj[r.rid][-1]
+                r.speculate(STATE_OF_CODE[last.state], last.consumed,
+                            last.n_gen)
+            report["completed"] = tenant_done + self._retire_planned(rec)
         rec.report = report
 
-        if feedbacks and len(self.queue):
-            # megastep-boundary policy feedback, padded to the configured
-            # megastep width (a zero-service step is an update no-op).
-            util = float(np.mean([float(fb.utilization)
-                                  for fb in feedbacks]))
-            zero = policies_lib.Feedback(
-                moved_read=self._fb_zero, moved_write=self._fb_zero,
-                utilization=np.float32(0.0))
-            pad = max(0, max(1, self.cfg.megastep) - len(feedbacks))
-            self.queue.note_service(
-                policies_lib.stack_feedbacks(feedbacks + [zero] * pad),
-                mean_util=util)
+        with maybe_phase(tr, "dispatch.policy"):
+            if feedbacks and len(self.queue):
+                # megastep-boundary policy feedback, padded to the
+                # configured megastep width (a zero-service step is an
+                # update no-op).
+                util = float(np.mean([float(fb.utilization)
+                                      for fb in feedbacks]))
+                zero = policies_lib.Feedback(
+                    moved_read=self._fb_zero, moved_write=self._fb_zero,
+                    utilization=np.float32(0.0))
+                pad = max(0, max(1, self.cfg.megastep) - len(feedbacks))
+                self.queue.note_service(
+                    policies_lib.stack_feedbacks(feedbacks + [zero] * pad),
+                    mean_util=util)
         self.step_count += k
         self.megasteps += 1
         self._inflight.append(rec)
-        if self._tracer is not None:
-            self._tracer.span(
-                "dispatch", t0, step=now, k=k, live=len(live),
-                in_flight=len(self._inflight),
-                page_ins=report["page_ins"], page_outs=report["page_outs"],
-                migrations=report["migrations"])
-            self._tracer.counter("in_flight", len(self._inflight))
+        if tr is not None:
+            tr.span("dispatch", t0, step=now, k=k, live=len(live),
+                    in_flight=len(self._inflight),
+                    page_ins=report["page_ins"],
+                    page_outs=report["page_outs"],
+                    migrations=report["migrations"])
+            tr.counter("in_flight", len(self._inflight))
         return rec
 
     def _retire_planned(self, rec: _InFlight) -> int:
@@ -852,7 +879,8 @@ class ServeEngine:
         device's final counters against the dispatched trajectory. A
         readback that contradicts its trajectory rolls back every
         speculative pool mutation before raising."""
-        t0 = self._tracer.now_us() if self._tracer is not None else 0.0
+        tr = self._tracer
+        t0 = tr.begin("reconcile") if tr is not None else 0.0
         self._inflight.remove(rec)
         bubble = bool(rec.live and not self._inflight)
         if bubble:
@@ -862,67 +890,83 @@ class ServeEngine:
         advanced = 0
         tok_pairs = [] if self._snap is not None else None
         if rec.live:
-            rb = rec.packed.wait()
-            try:
-                for r in rec.live:
-                    if r.state == FAILED:
-                        # failed mid-flight (poison/casualty/shed): its
-                        # readback is moot — the request already carries
-                        # its structured error.
-                        continue
-                    steps_r = rec.traj[r.rid]
-                    toks = [int(rb[r.slot, 3 + t])
-                            for t, st in enumerate(steps_r) if st.emitted]
-                    c0, g0 = r.consumed, len(r.generated)
-                    dev_state = int(rb[r.slot, 0])
-                    dev_consumed = int(rb[r.slot, 1])
-                    dev_ngen = int(rb[r.slot, 2])
-                    last = steps_r[-1]
-                    exp_ngen = g0 + sum(st.emitted for st in steps_r)
-                    fields = []
-                    if STATE_OF_CODE.get(dev_state) != \
-                            STATE_OF_CODE[last.state]:
-                        fields.append(
-                            f"state (host planned "
-                            f"{STATE_OF_CODE[last.state]}, device "
-                            f"reported {STATE_OF_CODE.get(dev_state, f'code {dev_state}')})")
-                    if dev_consumed != last.consumed:
-                        fields.append(
-                            f"consumed (host planned {last.consumed}, "
-                            f"device reported {dev_consumed})")
-                    if dev_ngen != exp_ngen:
-                        fields.append(
-                            f"n_gen (host planned {exp_ngen}, device "
-                            f"reported {dev_ngen})")
-                    if fields:
-                        raise RuntimeError(
-                            f"rid {r.rid}: boundary at step {rec.now} "
-                            f"(k={rec.k}): device readback diverged "
-                            f"from the host trajectory on "
-                            + "; ".join(fields))
-                    r.sync_megastep(dev_state, dev_consumed, dev_ngen, toks)
-                    advanced += ((last.consumed + last.n_gen) - (c0 + g0)
-                                 - sum(st.transition for st in steps_r))
-                    if tok_pairs is not None and toks:
-                        tok_pairs.append((r.rid, toks))
-            except RuntimeError:
-                if self._tracer is not None:
-                    self._tracer.instant(
-                        "engine", "divergence_rollback",
-                        {"step": rec.now, "k": rec.k}, clock="host")
-                self._rollback_speculation(rec)
-                raise
-        if self._snap is not None:
-            self._snap.note_boundary(
-                self, rec.now, rec.k,
-                [r.rid for r in rec.live
-                 if r.admitted_step == rec.now], tok_pairs)
-        if self._tracer is not None:
-            self._tracer.span("reconcile", t0, step=rec.now, k=rec.k,
-                              host_blocked=bubble, advanced=advanced)
+            with maybe_phase(tr, "reconcile.wait"):
+                rb = rec.packed.wait()
+        with maybe_phase(tr, "reconcile.sync"):
+            if rec.live:
+                advanced = self._sync_mirrors(rec, rb, tok_pairs)
+            if self._snap is not None:
+                self._snap.note_boundary(
+                    self, rec.now, rec.k,
+                    [r.rid for r in rec.live
+                     if r.admitted_step == rec.now], tok_pairs)
+        self.row_advances += advanced
+        if tr is not None:
+            tr.span("reconcile", t0, step=rec.now, k=rec.k,
+                    host_blocked=bubble, advanced=advanced)
         return {"step": rec.now, "steps": rec.k,
                 "admitted": rec.admitted, "advanced": advanced,
                 **rec.report}
+
+    def _sync_mirrors(self, rec: _InFlight, rb: np.ndarray,
+                      tok_pairs: list | None) -> int:
+        """Append one megastep's sampled tokens (``rb``, its readback) to
+        the live rows' host mirrors, cross-checking the device's final
+        counters against the trajectory; returns the row-micro-steps that
+        moved a request. A contradiction rolls back every speculative pool
+        mutation and raises."""
+        advanced = 0
+        try:
+            for r in rec.live:
+                if r.state == FAILED:
+                    # failed mid-flight (poison/casualty/shed): its
+                    # readback is moot — the request already carries
+                    # its structured error.
+                    continue
+                steps_r = rec.traj[r.rid]
+                toks = [int(rb[r.slot, 3 + t])
+                        for t, st in enumerate(steps_r) if st.emitted]
+                c0, g0 = r.consumed, len(r.generated)
+                dev_state = int(rb[r.slot, 0])
+                dev_consumed = int(rb[r.slot, 1])
+                dev_ngen = int(rb[r.slot, 2])
+                last = steps_r[-1]
+                exp_ngen = g0 + sum(st.emitted for st in steps_r)
+                fields = []
+                if STATE_OF_CODE.get(dev_state) != \
+                        STATE_OF_CODE[last.state]:
+                    fields.append(
+                        f"state (host planned "
+                        f"{STATE_OF_CODE[last.state]}, device "
+                        f"reported {STATE_OF_CODE.get(dev_state, f'code {dev_state}')})")
+                if dev_consumed != last.consumed:
+                    fields.append(
+                        f"consumed (host planned {last.consumed}, "
+                        f"device reported {dev_consumed})")
+                if dev_ngen != exp_ngen:
+                    fields.append(
+                        f"n_gen (host planned {exp_ngen}, device "
+                        f"reported {dev_ngen})")
+                if fields:
+                    raise RuntimeError(
+                        f"rid {r.rid}: boundary at step {rec.now} "
+                        f"(k={rec.k}): device readback diverged "
+                        f"from the host trajectory on "
+                        + "; ".join(fields))
+                r.sync_megastep(dev_state, dev_consumed, dev_ngen, toks)
+                advanced += ((last.consumed + last.n_gen) - (c0 + g0)
+                             - sum(st.transition for st in steps_r))
+                if tok_pairs is not None and toks:
+                    tok_pairs.append((r.rid, toks))
+        except RuntimeError:
+            tr = self._tracer
+            if tr is not None:
+                tr.instant("engine", "divergence_rollback",
+                           {"step": rec.now, "k": rec.k}, clock="host")
+                tr.end("reconcile")
+            self._rollback_speculation(rec)
+            raise
+        return advanced
 
     def _rollback_speculation(self, failed: _InFlight) -> None:
         """Divergence escape hatch: replay the journals of every

@@ -110,6 +110,11 @@ class Request:
     #: optional completion deadline (engine step). Under degraded
     #: capacity the engine sheds doomed-deadline requests first.
     deadline_step: int | None = None
+    #: a traced engine's stamps, on its tracer's host clock (None when
+    #: untraced): ``{"rid", "submit_us", "admit_us" (None while it
+    #: waits), "overtaken"}``, the requests behind it in FIFO order that
+    #: ``RequestQueue.dispatch`` admitted while it waited.
+    trace: dict | None = None
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -176,6 +181,9 @@ class RequestQueue:
         self._state = self.policy.init(self.params, capacity)
         self._prev_util = 0.0   # last megastep's mean engine-slot
                                 # utilization (note_service)
+        self.tracer = None      # a traced engine's serve.trace.Tracer:
+                                # dispatch stamps admissions, counts
+                                # overtakes
         self._opt_r = torch.tensor(channel_lib.peak_read_fraction(link),
                                    dtype=torch.float32)
         self._duplex = torch.tensor(link.duplex)
@@ -295,6 +303,8 @@ class RequestQueue:
                     continue
                 budgets[t] -= 1
             take.append(i)
+        if self.tracer is not None:
+            self._note_admissions(take, arrived)
         admitted = []
         moved_r = np.zeros((self.capacity,), np.float32)
         moved_w = np.zeros((self.capacity,), np.float32)
@@ -317,6 +327,27 @@ class RequestQueue:
         self._state = self.policy.update(self.params, self._state, fb)
         self._reset_slot_state(take)
         return admitted
+
+    def _note_admissions(self, take: list[int],
+                         arrived: np.ndarray) -> None:
+        """Stamp the taken requests' admission on the tracer's clock, and
+        add to each arrived request left waiting the taken requests of its
+        tenant that FIFO order (arrival step, then rid) puts behind it: an
+        admission on another tenant's budget overtakes nobody."""
+        now_us = self.tracer.now_us()
+        taken = [self._slots[i] for i in take]
+        for r in taken:
+            if r.trace is not None:
+                r.trace["admit_us"] = now_us
+        left = set(np.flatnonzero(arrived).tolist()) - set(take)
+        for i in left:
+            r = self._slots[i]
+            if r.trace is None:
+                continue
+            key = (r.arrival_step, r.rid)
+            r.trace["overtaken"] += sum(
+                a.tenant == r.tenant and (a.arrival_step, a.rid) > key
+                for a in taken)
 
     def remove(self, req: Request) -> bool:
         """Withdraw a still-waiting request (fault shedding: under

@@ -524,7 +524,7 @@ class SnapshotManager:
         generation, and re-persist any still-pending resubmit records so
         they survive the old generation being superseded."""
         tracer = getattr(engine, "_tracer", None)
-        t0 = tracer.now_us() if tracer is not None else 0.0
+        t0 = tracer.begin("snapshot_cut") if tracer is not None else 0.0
         while engine._inflight:
             engine._reconcile(engine._inflight[0])
         engine.pool.flush_dirty()
@@ -571,7 +571,7 @@ class SnapshotManager:
         ``disarm`` drops scheduled crash events so the death just
         recovered from does not re-fire during replay."""
         tracer = getattr(engine, "_tracer", None)
-        t0 = tracer.now_us() if tracer is not None else 0.0
+        t0 = tracer.begin("restore") if tracer is not None else 0.0
         tree, manifest = self.ckpt.restore(step)
         m = int(manifest["step"])
         _install(engine, _unpack(tree))

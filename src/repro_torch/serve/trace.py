@@ -1,4 +1,5 @@
-"""Duplex-aware tracing plane: boundary spans, channel timelines, Perfetto.
+"""Duplex-aware tracing plane: boundary spans, nested phases, channel
+timelines, Perfetto.
 
 Port of ``repro/serve/trace.py``: plain Python, no device work. On a CUDA
 device the engine's ``dispatch`` span covers the enqueue of its step
@@ -23,7 +24,15 @@ Two clocks, deliberately:
     the tracer's epoch. Boundary spans (``plan``/``dispatch``/
     ``reconcile``), snapshot cuts, and restore live here: they measure
     where the *host* spends its time between dispatches — the pipeline
-    bubbles ``host_blocked`` only counts.
+    bubbles ``host_blocked`` only counts. Inside them the engine opens
+    the nested phases of ``NESTED_PHASES`` (``Tracer.phases``, each with
+    the span or phase it opened in as its parent), and stamps each
+    request's submission and admission (``Request.trace``). The host
+    clock is shared with the device trace through ranges: while a torch
+    profiler records, every boundary span and phase is also a profiler
+    range ``engine/<name>`` (a CPU op, no device annotation and no
+    sync), so any profiler trace shows the engine's phases on the
+    kernels' own clock, with no offset to estimate.
   * **modelled clock** (``model_us``) — the cumulative billed
     transaction time of the memory hierarchy. Channel busy intervals
     (DDR5/CXL/ICI, per direction) and fault instants live here: each
@@ -35,21 +44,46 @@ Two clocks, deliberately:
 ``export()`` writes Chrome/Perfetto ``trace.json`` (open at
 https://ui.perfetto.dev): pid 1 = the engine's host-clock spans, pid 2
 = the modelled memory hierarchy, one thread per phase / per channel
-direction, fault instants riding the channel tracks.
+direction, fault instants riding the channel tracks. The nested phases
+stay out of it (the reference's export), and are read from
+``Tracer.phases`` or a profiler trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
+
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
 from repro_torch.core.metrics import MetricsRegistry
 
 #: span names the engine emits — the span taxonomy (README).
 PHASES = ("plan", "dispatch", "reconcile", "snapshot_cut", "restore")
+#: phases the engine opens inside its boundary spans, each named after
+#: its parent span: admission (``queue.dispatch`` and the slot installs),
+#: the rows' trajectories; the graph replays and the readback's enqueue,
+#: the paging transactions with the block frees between them, retirement
+#: (tier migration, shedding, the planning view), the policy fold; the
+#: blocking wait on the readback, and the host mirrors' sync.
+NESTED_PHASES = ("plan.admit", "plan.trajectory",
+                 "dispatch.replay", "dispatch.page", "dispatch.retire",
+                 "dispatch.policy",
+                 "reconcile.wait", "reconcile.sync")
+#: prefix of the profiler ranges of the spans and phases
+RANGE_PREFIX = "engine/"
 
 _HOST_PID = 1       # host-clock process (boundary spans)
 _MODEL_PID = 2      # modelled-clock process (channels + faults)
+_NO_PHASE = contextlib.nullcontext()
+
+
+def maybe_phase(tracer: "Tracer | None", name: str):
+    """``tracer.phase(name)``, or one shared no-op context where tracing
+    is off (``tracer`` None): no clock read, no allocation."""
+    return _NO_PHASE if tracer is None else tracer.phase(name)
 
 
 class Tracer:
@@ -66,6 +100,11 @@ class Tracer:
         self._epoch = time.perf_counter_ns()
         # host-clock spans: (name, t0_us, dur_us, args)
         self.spans: list[tuple[str, float, float, dict]] = []
+        # host-clock nested phases: (name, t0_us, dur_us, parent)
+        self.phases: list[tuple[str, float, float, str | None]] = []
+        # the spans and phases open now, outermost first: (name, the
+        # profiler range opened with it or None)
+        self._open: list[tuple[str, object]] = []
         # modelled-clock busy intervals per track:
         # track -> [(t0_us, dur_us, name, args), ...]
         self.timelines: dict[str, list] = {}
@@ -83,11 +122,49 @@ class Tracer:
         return (time.perf_counter_ns() - self._epoch) / 1e3
 
     # -- host-clock spans ----------------------------------------------------
+    def begin(self, name: str) -> float:
+        """Open the boundary span or phase ``name`` now: what opens before
+        it closes names it as its parent, and while a torch profiler
+        records it is also the range ``engine/<name>``. Returns its start
+        on the host clock, for ``span``."""
+        rng = None
+        if _autograd_profiler._is_profiler_enabled:
+            rng = _RecordFunctionFast(RANGE_PREFIX + name)
+            rng.__enter__()
+        self._open.append((name, rng))
+        return self.now_us()
+
+    def end(self, name: str) -> None:
+        """Close the innermost open ``name`` and whatever opened inside it
+        is still open (a span whose code raised). No-op where ``name`` is
+        not open (a span that was not begun)."""
+        for i in range(len(self._open) - 1, -1, -1):
+            if self._open[i][0] == name:
+                for _, rng in reversed(self._open[i:]):
+                    if rng is not None:
+                        rng.__exit__(None, None, None)
+                del self._open[i:]
+                return
+
     def span(self, name: str, t0_us: float, **args) -> None:
         """Close a boundary span opened at ``t0_us`` (host clock)."""
         dur = max(0.0, self.now_us() - t0_us)
         self.spans.append((name, t0_us, dur, args))
         self.metrics.observe(f"span.{name}.us", dur)
+        self.end(name)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """Record the block as the phase ``name`` of ``phases``, with the
+        innermost open span or phase as its parent (None outside any)."""
+        parent = self._open[-1][0] if self._open else None
+        t0 = self.begin(name)
+        try:
+            yield
+        finally:
+            self.phases.append((name, t0, max(0.0, self.now_us() - t0),
+                                parent))
+            self.end(name)
 
     def counter(self, name: str, value: float) -> None:
         """One sample of a host-clock counter series (Perfetto "C")."""

@@ -4,7 +4,8 @@ and without tenants, its CUDA graphs of the engine steps against the
 eager megastep (smollm-135m paged, the tenant mix, rwkv6-7b,
 mixtral-8x7b paged), the MoE block against the CPU's, the
 forward through the flash-attention kernel, the RWKV6 forward
-through the wkv6 kernel, a traced engine against an untraced one, the
+through the wkv6 kernel, a traced engine against an untraced one (also
+under the torch profiler, its phases as host ranges), the
 stream simulator on the card against the CPU and its step graphs
 against its eager steps, a crashed graphed engine restored from its
 snapshots against its uncrashed twin, and training: the wkv6 backward
@@ -663,6 +664,44 @@ def test_traced_graphed_engine_equals_untraced(cuda, plan):
     if plan is not None:
         assert {"offline", "poison", "evacuation"} <= {
             i[2] for i in tr.instants if i[1] == "faults"}
+
+
+def test_traced_engine_under_the_profiler(cuda):
+    """A traced graphed engine served under the torch profiler: the same
+    readings and device syncs (none) as an untraced one, each span and
+    phase one ``engine/`` range on the host, inside the profiled window,
+    and none of them on the device."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import registry
+    from repro_torch.serve.trace import RANGE_PREFIX
+    api = registry.build("smollm-135m", smoke=True, device="cuda")
+    params = api.init(torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(1).integers(
+        0, api.cfg.vocab, (6, 7)).astype(np.int32)
+    plain, _, _, plain_syncs = _tier_fault_run(api, params, prompts, True,
+                                               None)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced, eng, _, syncs = _tier_fault_run(api, params, prompts, True,
+                                                None, trace=True)
+    assert traced == plain
+    assert syncs == plain_syncs == {}
+    res = prof.profiler.kineto_results
+    events = [(e.name(), e.device_type(), e.start_ns(),
+               e.start_ns() + e.duration_ns()) for e in res.events()]
+    ranges = [e for e in events if e[0].startswith(RANGE_PREFIX)]
+    assert not [e for e in ranges if e[1] == DeviceType.CUDA]
+    tr = eng.tracer
+    assert Counter(e[0] for e in ranges) == Counter(
+        RANGE_PREFIX + name for name, *_ in tr.spans + tr.phases)
+    lo = res.trace_start_ns()
+    hi = max(e[3] for e in events if not e[0].startswith(RANGE_PREFIX))
+    assert all(lo <= e[2] <= e[3] <= hi for e in ranges)
+    assert sum(e[1] == DeviceType.CUDA for e in events) > 0
 
 
 # the CPU tests' tolerances (tests/test_torch_scheduler.py, which says why)
